@@ -1,0 +1,100 @@
+"""Front door of the batched PMF-convolution kernel.
+
+``batched_success`` is what the scheduler's success-chance signal calls
+once per scaling decision: all (task x machine-tail) chances in a single
+launch.  ``pmf_conv`` launches the CUDA kernel (``csrc/pmf_conv.cu``) for
+tensors on the card and takes the plain version (``ref.py``) for tensors on
+the CPU.  Launches route through the (no-op by default) kernel profiler.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..build import check, library
+from .ref import pmf_conv_ref
+from ...device import resolve_device
+from ...obs.profiling import profiled
+
+__all__ = ["pmf_conv", "pmf_conv_cuda", "pack_pmfs", "batched_success"]
+
+
+def pmf_conv_cuda(pet, pct, dl):
+    """The CUDA kernel.  pet (N, Le), pct (N, Lc), dl (N,) f32 on the card
+    -> (out (N, Lc+Le-1), success (N,))."""
+    n, le = pet.shape
+    lc = pct.shape[1]
+    if pct.shape[0] != n or dl.shape != (n,):
+        raise ValueError("pet, pct and dl must share the row count")
+    for name, t in (("pet", pet), ("pct", pct), ("dl", dl)):
+        if not t.is_cuda or t.dtype != torch.float32 \
+                or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous CUDA float32 "
+                             "tensor")
+    out = torch.empty((n, lc + le - 1), dtype=torch.float32,
+                      device=pet.device)
+    suc = torch.empty((n,), dtype=torch.float32, device=pet.device)
+    err = library().pmf_conv_f32(
+        pet.data_ptr(), pct.data_ptr(), dl.data_ptr(), out.data_ptr(),
+        suc.data_ptr(), n, le, lc,
+        torch.cuda.current_stream(pet.device).cuda_stream)
+    pmf_conv_cuda.launches += 1
+    check(err, "pmf_conv")
+    return out, suc
+
+
+pmf_conv_cuda.launches = 0
+
+
+def _pmf_conv(pet, pct, dl):
+    if pet.is_cuda:
+        return pmf_conv_cuda(pet, pct, dl)
+    return pmf_conv_ref(pet, pct, dl)
+
+
+def pmf_conv(pet, pct, dl):
+    """(out, success) for a batch of PEND_DROP convolutions."""
+    return profiled("pmf_conv", _pmf_conv, pet, pct, dl)
+
+
+def pack_pmfs(pmfs, length: int) -> tuple[np.ndarray, np.ndarray]:
+    """Compact + pad a list of core.pmf.PMF onto a fixed grid.
+
+    Returns (values (N, length), offsets (N,)).  Mass beyond the grid is
+    folded into the last bucket (impulse compaction's max-range clamp)."""
+    vals = np.zeros((len(pmfs), length), np.float32)
+    offs = np.zeros((len(pmfs),), np.int64)
+    for i, p in enumerate(pmfs):
+        offs[i] = p.offset
+        v = np.asarray(p.values, np.float32)
+        if len(v) > length:
+            head, tail = v[:length - 1], v[length - 1:]
+            vals[i, :length - 1] = head
+            vals[i, length - 1] = tail.sum()
+        else:
+            vals[i, :len(v)] = v
+    return vals, offs
+
+
+def batched_success(pets, pcts, deadlines, length: int = 128,
+                    device=None) -> np.ndarray:
+    """Chance-of-success for N (task, machine-tail) pairs.
+
+    ``pets``/``pcts``: lists of PMF; ``deadlines``: absolute times.
+    ``device`` None runs on CUDA.  Both PMF offsets fold into one per-row
+    deadline index: out[t] sits at absolute time pet_off + pct_off + t, and
+    the PEND cut ``t_c < dl - pct_off - pet_off`` on the pct grid shifts
+    every path by the same pet offset, so one index serves both (the same
+    algebra as ``repro.kernels.pmf_conv.ops.batched_success``; the tests
+    hold it against ``core.pmf.chance_of_success``).
+    """
+    dev = resolve_device(device)
+    pet_v, pet_o = pack_pmfs(pets, length)
+    pct_v, pct_o = pack_pmfs(pcts, length)
+    dl_idx = np.asarray(deadlines, np.int64) - pet_o - pct_o
+    dl_kernel = np.maximum(dl_idx, -1).astype(np.float32)
+    _, suc = pmf_conv(torch.from_numpy(pet_v).to(dev),
+                      torch.from_numpy(pct_v).to(dev),
+                      torch.from_numpy(dl_kernel).to(dev))
+    return suc.cpu().numpy()
