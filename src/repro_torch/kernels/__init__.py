@@ -2,6 +2,7 @@
 
 | kernel | route | source | replaces |
 |---|---|---|---|
+| decode attention | CUDA C++ | ``csrc/decode_attention.cu`` | ``decode_attention_pallas`` |
 | paged decode attention | CUDA C++ | ``csrc/paged_decode_attention.cu`` | ``paged_decode_attention_pallas`` |
 | RMSNorm | Triton | ``rmsnorm/rmsnorm.py`` | ``rmsnorm_pallas`` |
 | PMF convolution | CUDA C++ | ``csrc/pmf_conv.cu`` | ``pmf_conv_pallas`` |
@@ -16,10 +17,12 @@ from __future__ import annotations
 
 
 def _wrappers() -> dict:
-    from .decode_attention.ops import paged_decode_attention_cuda
+    from .decode_attention.ops import (decode_attention_cuda,
+                                       paged_decode_attention_cuda)
     from .pmf_conv.ops import pmf_conv_cuda
     from .rmsnorm.ops import rmsnorm_triton
-    return {"paged_decode_attention": paged_decode_attention_cuda,
+    return {"decode_attention": decode_attention_cuda,
+            "paged_decode_attention": paged_decode_attention_cuda,
             "rmsnorm": rmsnorm_triton, "pmf_conv": pmf_conv_cuda}
 
 

@@ -20,7 +20,9 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("paged_decode_attention.cu", "pmf_conv.cu")
+SOURCES = ("decode_attention.cu", "paged_decode_attention.cu", "pmf_conv.cu")
+#: headers the sources include; they enter the library's hash
+HEADERS = ("decode_attention.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_ext"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -31,6 +33,7 @@ _F = ctypes.c_float
 #: C signatures: every pointer and the stream as c_void_p, so ctypes never
 #: truncates a 64-bit address to an int
 SIGNATURES = {
+    "decode_attention_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "paged_decode_attention_bf16": [_P, _P, _P, _P, _P, _P,
                                     _I, _I, _I, _I, _I, _I, _F, _P],
     "pmf_conv_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
@@ -52,7 +55,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
 

@@ -1,10 +1,30 @@
-"""Plain PyTorch version of the paged flash-decode kernel."""
+"""Plain PyTorch versions of the flash-decode kernels (contiguous and
+paged), the ports of ``repro.kernels.decode_attention.ref``."""
 
 from __future__ import annotations
 
 import math
 
 import torch
+
+
+def decode_attention_ref(q, k_cache, v_cache, lengths):
+    """q (B, H, hd); k/v (B, S, Hkv, hd); lengths (B,) -> (B, H, hd).
+
+    f32 throughout, output cast to q's dtype, as the JAX ref.  A row of
+    length 0 gives NaN here (a softmax over no keys); the kernels give 0.
+    """
+    b, s, hkv, hd = k_cache.shape
+    h = q.shape[1]
+    g = h // hkv
+    qg = q.reshape(b, hkv, g, hd).float()
+    scale = 1.0 / math.sqrt(hd)
+    scores = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.float()) * scale
+    mask = torch.arange(s, device=q.device)[None, :] < lengths[:, None]
+    scores = scores.masked_fill(~mask[:, None, None, :], float("-inf"))
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
+    return out.reshape(b, h, hd).to(q.dtype)
 
 
 def paged_decode_attention_ref(q, k_pages, v_pages, block_tables, lengths):

@@ -4,7 +4,9 @@ Params are nested dicts of tensors with the JAX package's layouts (every
 matmul weight stored (in_dim, out_dim), so ``x @ w`` matches
 ``layers.dense``).  The plain large products stay ``torch.matmul``, as the
 JAX package leaves them to XLA; every norm goes through the port's RMSNorm
-kernel (``kernels.rmsnorm``).  Forward only: the port serves, it does not
+kernel (``kernels.rmsnorm``) and, on the card, the contiguous-cache decode
+attention through the port's flash-decode kernel
+(``kernels.decode_attention``).  Forward only: the port serves, it does not
 train.  Cross-attention (enc-dec) is not ported.
 """
 
@@ -15,6 +17,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..kernels.decode_attention.ops import \
+    decode_attention as _decode_attention_kernel
 from ..kernels.rmsnorm.ops import rmsnorm as _rmsnorm_kernel
 
 # ---------------------------------------------------------------------------
@@ -142,7 +146,26 @@ def decode_attention(q, k_cache, v_cache, length, window: int = 0):
     """Single-token attention against a KV cache.
 
     q: (B, H, hd); k/v_cache: (B, Smax, Hkv, hd); length: (B,) valid lengths.
+
+    On the card this is the port's flash-decode kernel
+    (``kernels.decode_attention``: f32 scores, reads only each row's first
+    ``length`` keys).  On the CPU it is ``decode_attention_plain``, which
+    keeps the JAX layer's cast order (bf16 scores and probs), so the CPU model
+    agrees tightly with the JAX model.
     """
+    if q.is_cuda:
+        if window:
+            raise NotImplementedError(
+                "sliding-window decode on the card needs a windowed "
+                "flash-decode kernel, which the port does not have yet")
+        return _decode_attention_kernel(q.contiguous(), k_cache, v_cache,
+                                        length.to(torch.int32))
+    return decode_attention_plain(q, k_cache, v_cache, length, window)
+
+
+def decode_attention_plain(q, k_cache, v_cache, length, window: int = 0):
+    """The plain code of ``decode_attention`` on any device: the JAX
+    layer's formula and cast order."""
     b, smax, hkv, hd = k_cache.shape
     h = q.shape[1]
     groups = h // hkv

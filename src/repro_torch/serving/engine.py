@@ -215,28 +215,23 @@ class ProcessingUnit:
         if shared_fns is not None:
             # warm start: reuse the engine's step functions (the paper's
             # warm container)
-            self._prefill, self._decode, self._prefill_cached = shared_fns
+            self._chunk, self._decode = shared_fns
         else:
-            prefill = T.prefill_fn(model_cfg)
-            cached = T.prefill_from_cache(model_cfg)
-            self._prefill = lambda p, b: prefill(p, b, max_len)
+            self._chunk = T.chunk_prefill_fn(model_cfg)
             self._decode = T.decode_fn(model_cfg)
-            self._prefill_cached = \
-                lambda p, b, pk, pv: cached(p, b, pk, pv, max_len)
         self.warm = False
 
     @property
     def fns(self):
-        return (self._prefill, self._decode, self._prefill_cached)
+        return (self._chunk, self._decode)
 
     def warmup(self, prompt_len: int = 16, buckets=(1,)) -> float:
         """Run prefill+decode once per batch bucket (the cold start: it
         builds the kernels and warms the allocator)."""
         t0 = time.perf_counter()
         for b in buckets:
-            toks = torch.zeros((b, prompt_len), dtype=torch.long,
-                               device=self.device)
-            logits, cache = self._prefill(self.params, {"tokens": toks})
+            logits, cache = self._prefill(
+                (0,) * min(prompt_len, self.max_len - 1), b)
             self._decode(self.params, cache,
                          torch.zeros((b,), dtype=torch.long,
                                      device=self.device))
@@ -244,12 +239,53 @@ class ProcessingUnit:
         self.warm = True
         return time.perf_counter() - t0
 
+    def _prefill(self, prompt, bucket: int, prefix=None):
+        """Prefill ``bucket`` copies of ``prompt`` into a contiguous cache
+        of ``max_len`` positions; returns (last-token logits, cache).
+
+        ``prefix=(pk, pv)`` (L, P, Hkv, hd) holds the KV of the first P
+        prompt tokens: only the rest is prefilled, attached to it.  Every
+        prefill has one shape per unit, whatever P and the prompt length:
+        the new tokens are padded to ``max_len`` rows (pad rows trail every
+        real one, so the causal mask hides them from the real rows) and the
+        attended keys to ``2 * max_len``.  On the card cuBLAS picks its
+        kernel, and so its summation order, by shape; with one shape a
+        prompt's tokens are the same whether or not its prefix came from
+        the cache."""
+        mc, dev, cap = self.cfg, self.device, self.max_len
+        if prefix is None:
+            pk = pv = torch.zeros((mc.n_layers, 0, mc.n_kv_heads,
+                                   mc.resolved_head_dim), dtype=torch.bfloat16)
+        else:
+            pk, pv = prefix
+        plen = pk.shape[1]
+        n = len(prompt) - plen
+        if n < 1 or plen + n > cap:
+            raise ValueError(f"a prompt of {len(prompt)} tokens after a "
+                             f"{plen}-token prefix does not fit max_len "
+                             f"{cap}")
+        toks = torch.zeros((bucket, cap), dtype=torch.long)
+        toks[:, :n] = torch.as_tensor(np.asarray(prompt[plen:], np.int64))
+        pkb = pk.to(dev)[:, None].expand(
+            (pk.shape[0], bucket) + tuple(pk.shape[1:]))
+        pvb = pv.to(dev)[:, None].expand(
+            (pv.shape[0], bucket) + tuple(pv.shape[1:]))
+        logits, kn, vn = self._chunk(self.params, toks.to(dev), pkb, pvb,
+                                     last=n - 1, kv_len=2 * cap)
+        pad = (0, 0, 0, 0, 0, cap - plen - n)
+        cache = {"k": F.pad(torch.cat([pkb, kn[:, :, :n]], dim=2), pad),
+                 "v": F.pad(torch.cat([pvb, vn[:, :, :n]], dim=2), pad),
+                 "len": torch.full((bucket,), plen + n, dtype=torch.int32,
+                                   device=dev)}
+        return logits, cache
+
     def execute(self, task: Task, requests: list[Request],
                 rng: np.random.Generator, buckets=(1, 2, 4, 8),
                 prefix=None):
         """Run the (possibly merged) task; returns (wall seconds, kv cache).
 
-        Batch sizes are padded to fixed buckets, as in the JAX engine.
+        Batch sizes are padded to fixed buckets, as in the JAX engine, and
+        the prefill to one shape per unit (``_prefill``).
 
         ``prefix=(pk, pv)`` — host KV tensors (L, P, Hkv, hd) for the first P
         prompt tokens from the paged prefix cache: only ``prompt[P:]`` is
@@ -258,22 +294,9 @@ class ProcessingUnit:
         the cache."""
         t0 = time.perf_counter()
         dev = self.device
-        prompt = torch.as_tensor(np.asarray(requests[0].prompt, np.int64))
         batch = len(requests)
         bucket = next((b for b in buckets if b >= batch), batch)
-        if prefix is not None:
-            pk, pv = prefix
-            plen = pk.shape[1]
-            toks = prompt[None, plen:].repeat(bucket, 1).to(dev)
-            pkb = pk.to(dev)[:, None].expand(
-                (pk.shape[0], bucket) + tuple(pk.shape[1:]))
-            pvb = pv.to(dev)[:, None].expand(
-                (pv.shape[0], bucket) + tuple(pv.shape[1:]))
-            logits, cache = self._prefill_cached(
-                self.params, {"tokens": toks}, pkb, pvb)
-        else:
-            toks = prompt[None, :].repeat(bucket, 1).to(dev)
-            logits, cache = self._prefill(self.params, {"tokens": toks})
+        logits, cache = self._prefill(requests[0].prompt, bucket, prefix)
         n_new = max((r.n_new for r in requests if r.op == "generate"),
                     default=0)
         cur = torch.argmax(logits, dim=-1)

@@ -24,6 +24,7 @@ from repro.serving.engine import ServingEngine as JaxServingEngine
 from repro_torch.bridge import params_from_jax, to_tensor
 from repro_torch.configs.registry import get_arch
 from repro_torch.core.pruning import PruningConfig
+from repro_torch.core.simulation import PETOracle
 from repro_torch.core.tasks import PETMatrix
 from repro_torch.models import transformer as T
 from repro_torch.serving.autoscale import ElasticityConfig
@@ -213,31 +214,6 @@ class TestAgainstJax:
 # stub engines: the same decisions in both packages
 # ---------------------------------------------------------------------------
 
-class _PortPETOracle:
-    """``repro.core.simulation.PETOracle`` over the port's PET matrix (the
-    simulator is not ported; its oracle is three lines of PMF lookups)."""
-
-    def __init__(self, pet, seed=0):
-        self.petm = pet
-        self._rng = np.random.default_rng(seed)
-        self._cache = {}
-
-    def mean_std(self, task, machine):
-        key = (task.ttype, machine.mtype, machine.speed)
-        if key not in self._cache:
-            p = self.petm.pet(task.ttype, machine)
-            self._cache[key] = (p.mean(), p.std())
-        return self._cache[key]
-
-    def pmf(self, task, machine):
-        return self.petm.pet(task.ttype, machine)
-
-    def sample(self, task, machine):
-        p = self.petm.pet(task.ttype, machine).normalize()
-        v = p.values / p.values.sum()
-        return float(self._rng.choice(p.times(), p=v))
-
-
 def _request_trace(req_cls, n=40, seed=1, n_prompts=5, deadline=80.0,
                    rate=0.5):
     rng = np.random.default_rng(seed)
@@ -280,7 +256,7 @@ class TestStubTraceEquivalence:
                 pet = PETMatrix.generate(
                     ["generate"], ["m0"], np.random.default_rng(3),
                     mean_range=(8, 16))
-                oracle = _PortPETOracle(pet, seed=11)
+                oracle = PETOracle(pet, seed=11)
                 prc, ecfg, eng_cls, req_cls, bat_cls = (
                     PruningConfig, EngineConfig, ServingEngine, Request,
                     StepBatchingConfig)
