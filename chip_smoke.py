@@ -21,7 +21,11 @@ Phases (any failure exits non-zero and prints no result line):
      layer's plain version on the bf16 inputs (bf16 scores): atol 1e-2 /
      rtol 1e-2.  Bit-exact when keys and values past each row's length
      are set to +-99, and bit-exact for each row alone against the same
-     row in the batch;
+     row in the batch.  Against the plain model of its split-key algorithm
+     (``decode_attention_split_ref``: the same 16-key granules dealt to 8
+     ranks, the same rank-order combine, on the inputs cast to f32) at
+     lengths 0, 1, 15, 16, 17, 127, 128, 129 and 1024: atol 1e-4 / rtol
+     4e-3.  Two calls give the same bits;
    * paged decode attention, B in {1, 3, 8}, ragged lengths both at the
      38-47 keys the batched path serves and up to ``max_len``, a poisoned
      pad page 0.  Against the plain version on the bf16 inputs (scores in
@@ -29,7 +33,15 @@ Phases (any failure exits non-zero and prints no result line):
      up to 2.  Against the plain version on the same inputs cast to f32
      (scores in f32 like the kernel and the Pallas kernel): atol 1e-4 /
      rtol 4e-3, the kernel's own bf16 rounding of its output.  One key too
-     many or too few moves some output by far more than either limit;
+     many or too few moves some output by far more than either limit.
+     Against ``paged_decode_attention_split_ref`` on the f32 inputs at the
+     boundary lengths above (atol 1e-4 / rtol 4e-3), with every table entry past a
+     sequence's last page set to an id that indexes no page (bit-exact
+     against the clean table), and two calls give the same bits.  Timed at
+     the long shape (the JSON row) and at the served one (B=8, 38-46
+     keys); ``scaled_dot_product_attention`` over the same keys gathered
+     into a contiguous cache is printed beside it, but is not the same
+     function (no block table), so the row's ``library_ms`` stays null;
    * RMSNorm on (8, 1, 960) and (64, 960) bf16 (atol/rtol 2e-2, one bf16
      rounding apart);
    * the PMF convolution on (32, 64), deadlines below, inside and above
@@ -61,6 +73,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -158,12 +171,33 @@ def assert_close(name, got, want, atol, rtol):
 # phase 2: each kernel against its plain version
 # ---------------------------------------------------------------------------
 
+#: lengths that start, fill and cross a 16-key granule (one page) and the
+#: 8-rank deal (128 keys), and the capacity
+BOUNDARY_LENGTHS = (0, 1, 15, 16, 17, 127, 128, 129, 1024)
+
+
+def check_split(name, kern, split, args, lens) -> float:
+    """The kernel against the plain model of its split-key algorithm, fed
+    the same inputs in f32 and so not rounded to bf16 at its end (atol 1e-4
+    / rtol 4e-3: half a bf16 ulp is at most 2^-8 of a value, the kernel's
+    rounding of its output), and two calls against each other, bit for
+    bit; returns the max |err|."""
+    got = kern(*args)
+    want = split(*(a.float() if a.dtype == torch.bfloat16 else a
+                   for a in args))
+    assert_close(f"{name} lens {lens} (split model)", got, want, 1e-4, 4e-3)
+    if not torch.equal(got, kern(*args)):
+        raise AssertionError(f"{name} lens {lens}: two calls differ")
+    return max_err(got, want)
+
+
 def check_decode_attention(mc, max_len: int) -> dict:
     """The contiguous-cache kernel at the one-at-a-time path's shapes (a
     ``max_len`` cache, 38-50 keys) and at long lengths (up to 1024).  The
     JSON row times the path's shape, B = 1; the long shape is timed too."""
     from repro_torch.kernels.decode_attention.ops import decode_attention_cuda
-    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_ref, decode_attention_split_ref)
     from repro_torch.models.layers import decode_attention_plain
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED + 5)
@@ -209,6 +243,18 @@ def check_decode_attention(mc, max_len: int) -> dict:
             if (s, b) in ((max_len, 1), (1024, 8)):
                 timed[(s, b)] = (q, k, v, ln, lens)
 
+    worst_split = 0.0
+    for n in BOUNDARY_LENGTHS:
+        shape = (3, 1024, hkv, hd)
+        k = torch.randn(shape, generator=g, device=dev).bfloat16()
+        v = torch.randn(shape, generator=g, device=dev).bfloat16()
+        q = torch.randn((3, h, hd), generator=g, device=dev).bfloat16()
+        lens = [n, 1024, 45]
+        ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+        worst_split = max(worst_split, check_split(
+            "decode_attention B=3 S=1024", decode_attention_cuda,
+            decode_attention_split_ref, (q, k, v, ln), lens))
+
     def times(s, b):
         q, k, v, ln, lens = timed[(s, b)]
         it = iter(range(10 ** 9))
@@ -248,7 +294,8 @@ def check_decode_attention(mc, max_len: int) -> dict:
                 "wall")},
             "shape": f"B=1 H={h} Hkv={hkv} hd={hd} S={max_len} "
                      f"keys={main['keys']}; max|err| vs f32 plain "
-                     f"{worst_f32:.3g}; long B=8 S=1024 keys={long['keys']}:"
+                     f"{worst_f32:.3g}, vs split model {worst_split:.3g}; "
+                     f"long B=8 S=1024 keys={long['keys']}:"
                      f" kernel {long['ms']:.4f} ms, plain "
                      f"{long['plain_ms']:.4f} ms, bound "
                      f"{long['bound_ms']:.5f} ms, sdpa "
@@ -259,8 +306,8 @@ def check_decode_attention(mc, max_len: int) -> dict:
 def check_paged_attention(mc, max_len: int, max_batch: int, ps: int) -> dict:
     from repro_torch.kernels.decode_attention.ops import \
         paged_decode_attention_cuda
-    from repro_torch.kernels.decode_attention.ref import \
-        paged_decode_attention_ref
+    from repro_torch.kernels.decode_attention.ref import (
+        paged_decode_attention_ref, paged_decode_attention_split_ref)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED)
     hkv, hd, h = mc.n_kv_heads, mc.resolved_head_dim, mc.n_heads
@@ -278,18 +325,21 @@ def check_paged_attention(mc, max_len: int, max_batch: int, ps: int) -> dict:
     rng = np.random.default_rng(SEED)
     kf, vf = kp[0].float(), vp[0].float()
     served = (SYS_LEN + SUFFIX_LEN, SYS_LEN + SUFFIX_LEN + N_NEW)
+    def table(lens):
+        perm = rng.permutation(np.arange(1, n_pages))
+        tables = np.zeros((len(lens), mp), np.int32)
+        for i, n in enumerate(lens):
+            npg = -(-int(n) // ps)
+            tables[i, :npg] = perm[i * mp:i * mp + npg]
+        return torch.from_numpy(tables).to(dev)
+
     worst, worst_f32, rows = 0.0, 0.0, {}
     for (lo, hi), b in [(r, b) for r in ((1, max_len + 1), served)
                         for b in (1, 3, 8)]:
         lens = rng.integers(lo, hi, size=b)
         if hi > max_len and b > 1:
             lens[0] = max_len
-        perm = rng.permutation(np.arange(1, n_pages))
-        tables = np.zeros((b, mp), np.int32)
-        for i, n in enumerate(lens):
-            npg = -(-int(n) // ps)
-            tables[i, :npg] = perm[i * mp:i * mp + npg]
-        tab = torch.from_numpy(tables).to(dev)
+        tab = table(lens)
         ln = torch.from_numpy(lens.astype(np.int32)).to(dev)
         q = torch.randn((b, h, hd), generator=g, device=dev).to(torch.bfloat16)
         got = paged_decode_attention_cuda(q, kp[0], vp[0], tab, ln)
@@ -301,33 +351,84 @@ def check_paged_attention(mc, max_len: int, max_batch: int, ps: int) -> dict:
                      f"(f32 plain)", got, want32, 1e-4, 4e-3)
         worst = max(worst, max_err(got, want))
         worst_f32 = max(worst_f32, max_err(got, want32))
-        if hi > max_len:
-            rows[b] = (q, tab, ln, lens)
-    q, tab, ln, lens = rows[max_batch]
+        rows["long" if hi > max_len else "served", b] = (q, tab, ln, lens)
+    worst_split = 0.0
+    for n in BOUNDARY_LENGTHS:
+        lens = [n, max_len, 45]
+        tab, ln = table(lens), torch.tensor(lens, dtype=torch.int32,
+                                            device=dev)
+        q = torch.randn((3, h, hd), generator=g, device=dev).bfloat16()
+        args = (q, kp[0], vp[0], tab, ln)
+        worst_split = max(worst_split, check_split(
+            "paged_decode_attention B=3", paged_decode_attention_cuda,
+            paged_decode_attention_split_ref, args, lens))
+        # entries past each sequence's last page index no page at all
+        poisoned = tab.clone()
+        for i, m in enumerate(lens):
+            poisoned[i, -(-m // ps):] = 2 ** 30
+        if not torch.equal(paged_decode_attention_cuda(q, kp[0], vp[0],
+                                                       poisoned, ln),
+                           paged_decode_attention_cuda(*args)):
+            raise AssertionError(f"paged_decode_attention lens {lens}: "
+                                 f"table entries past the length leak")
+
+    def times(kind):
+        q, tab, ln, lens = rows[kind, max_batch]
+        it = iter(range(10 ** 9))
+
+        def kern():
+            i = next(it) % layers
+            paged_decode_attention_cuda(q, kp[i], vp[i], tab, ln)
+
+        def plain():
+            i = next(it) % layers
+            paged_decode_attention_ref(q, kp[i], vp[i], tab, ln)
+
+        n_keys = int(lens.sum())
+        nbytes = (q.numel() * 2 * 2 + 2 * n_keys * hkv * hd * 2
+                  + tab.numel() * 4 + ln.numel() * 4)
+        b_ms, b_by = bound(nbytes, 4.0 * n_keys * h * hd)
+        return {**timings(kern, plain), "bound_ms": b_ms, "bound_by": b_by,
+                "keys": n_keys, "lens": lens}
+
+    long, served_t = times("long"), times("served")
+    # yardstick, not the same function: SDPA over the long shape's keys
+    # gathered into a contiguous cache (the gather is outside the timing)
+    q, tab, ln, lens = rows["long", max_batch]
+    gather = tab.long()
+    kc = kp[:, gather].reshape(layers, max_batch, mp * ps, hkv, hd) \
+        .transpose(2, 3).contiguous()
+    vc = vp[:, gather].reshape(layers, max_batch, mp * ps, hkv, hd) \
+        .transpose(2, 3).contiguous()
+    mask = (torch.arange(mp * ps, device=dev)[None, :] < ln[:, None]) \
+        [:, None, None, :]
     it = iter(range(10 ** 9))
 
-    def kern():
+    def sdpa():
         i = next(it) % layers
-        paged_decode_attention_cuda(q, kp[i], vp[i], tab, ln)
+        F.scaled_dot_product_attention(q[:, :, None], kc[i], vc[i],
+                                       attn_mask=mask, enable_gqa=True)
 
-    def plain():
-        i = next(it) % layers
-        paged_decode_attention_ref(q, kp[i], vp[i], tab, ln)
-
-    n_keys = int(lens.sum())
-    nbytes = (q.numel() * 2 * 2 + 2 * n_keys * hkv * hd * 2
-              + tab.numel() * 4 + ln.numel() * 4)
-    flops = 4.0 * n_keys * h * hd
-    b_ms, b_by = bound(nbytes, flops)
+    sdpa_ms = device_ms(sdpa)
+    del kc, vc
     return {"name": "paged_decode_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
             "replaces": "src/repro/kernels/decode_attention/"
                         "decode_attention.py:166",
-            "max_abs_err": worst, **timings(kern, plain), "bound_ms": b_ms,
-            "bound_by": b_by,
+            "max_abs_err": worst, **{k: long[k] for k in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "wall")},
             "shape": f"B={max_batch} H={h} Hkv={hkv} hd={hd} PS={ps} "
-                     f"MP={mp} keys={n_keys}; max|err| vs f32 plain "
-                     f"{worst_f32:.3g}"}
+                     f"MP={mp} keys={long['keys']}; max|err| vs f32 plain "
+                     f"{worst_f32:.3g}, vs split model {worst_split:.3g}; "
+                     f"served B={max_batch} lens {served_t['lens'].tolist()}"
+                     f" keys={served_t['keys']}: kernel "
+                     f"{served_t['ms']:.5f} ms, plain "
+                     f"{served_t['plain_ms']:.5f} ms, bound "
+                     f"{served_t['bound_ms']:.7f} ms (device); sdpa over "
+                     f"the long keys gathered into a contiguous cache "
+                     f"{sdpa_ms:.5f} ms (device; not the same function: "
+                     f"no block table)"}
 
 
 def check_rmsnorm(mc, max_batch: int, budget: int) -> dict:
@@ -789,6 +890,26 @@ def log_profile(prof: dict, what: str, n_layers: int) -> None:
         log(f"    {ms:8.4f} ms/step  {name[:90]}")
 
 
+def log_ptxas(text: str) -> None:
+    """Each kernel's registers, static shared memory, stack frame and
+    spills from the build's ``-Xptxas -v`` report, under its name and
+    template arguments."""
+    name = "?"
+    for line in text.splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)", line)
+        if entry:
+            m = re.search(r"(paged_decode_kernel|decode_kernel|"
+                          r"pmf_conv_kernel)(I(?:Li\d+E)+E)?", entry.group(1))
+            name = m.group(1) if m else entry.group(1)
+            if m and m.group(2):
+                name += "<" + ", ".join(re.findall(r"Li(\d+)E",
+                                                   m.group(2))) + ">"
+        elif "Used" in line:
+            log(f"  ptxas: {name}: {line.split(':', 1)[1].strip()}")
+        elif "spill" in line:
+            log(f"  ptxas: {name}: {line.strip()}")
+
+
 def _tree_to(tree, dev):
     if isinstance(tree, dict):
         return {k: _tree_to(v, dev) for k, v in tree.items()}
@@ -819,9 +940,7 @@ def main() -> int:
     rmsnorm_triton(x, torch.ones((8,), dtype=torch.bfloat16, device="cuda"))
     torch.cuda.synchronize()
     log(f"phase 1: kernels built in {time.perf_counter() - t0:.1f} s")
-    for line in (BUILD_DIR / "ptxas.log").read_text().splitlines():
-        if "Used" in line or "==" in line:
-            log(f"  ptxas: {line.strip()}")
+    log_ptxas((BUILD_DIR / "ptxas.log").read_text())
 
     mc = get_arch("smollm-360m")
     t0 = time.perf_counter()

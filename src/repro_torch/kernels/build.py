@@ -30,9 +30,11 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_IP = ctypes.POINTER(ctypes.c_int)
 #: C signatures: every pointer and the stream as c_void_p, so ctypes never
 #: truncates a 64-bit address to an int
 SIGNATURES = {
+    "decode_attention_geometry": [_IP, _IP],
     "decode_attention_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "paged_decode_attention_bf16": [_P, _P, _P, _P, _P, _P,
                                     _I, _I, _I, _I, _I, _I, _F, _P],

@@ -14,44 +14,73 @@
 // values once (2 * len * Hkv * hd bf16) and does 4 * H * hd flops per key,
 // far below the card's 295 flops/byte ridge.  The Pallas kernel streams all
 // S = max_len positions through VMEM and masks the tail; this kernel stops
-// at each row's length, so it moves len / S of those bytes: at the serving
-// shapes (S = max_len, len ~ 40) most of the cache is never touched.
+// at each row's length, so it moves len / S of those bytes.
 //
-// Design: the tile loop of decode_attention.cuh, one block per (row b, kv
-// head h), with key t of row b at k[b, t, h, :].  Tiles hold 64 keys.  The
-// split of the work never depends on B, so row b's output has the same bits
-// whatever its batch-mates are (merged tasks and bucket padding rely on
-// that).
+// Design: the split-key loop of decode_attention.cuh.  Row b's keys are
+// dealt in 16-key granules to the 8 blocks of the cluster for (b, kv head
+// h), with key t of row b at k[b, t, h, :]; granule j starts at key 16 j.
 
 #include "decode_attention.cuh"
 
 namespace {
 
-constexpr int kTileRows = 64;
-
 struct ContiguousRows {
   size_t base;        // offset of row b, key 0, head h
-  int row_stride;     // Hkv * hd
-  __device__ size_t row(int t) const { return base + (size_t)t * row_stride; }
+  int stride;         // Hkv * hd
+  __device__ void load_ids(int, int, int*) const {}
+  __device__ size_t granule(int j, int, const int*) const {
+    return base + (size_t)j * decode_attn::kGranule * stride;
+  }
 };
 
-__global__ void __launch_bounds__(decode_attn::kThreads)
+template <int GM, int HDM>
+__global__ void __cluster_dims__(decode_attn::kRanks, 1, 1)
+__launch_bounds__(decode_attn::kThreads, decode_attn::min_blocks(GM, HDM))
 decode_kernel(const __nv_bfloat16* __restrict__ q,       // (B, H, hd)
               const __nv_bfloat16* __restrict__ k,       // (B, S, Hkv, hd)
               const __nv_bfloat16* __restrict__ v,
               const int* __restrict__ lengths,           // (B,)
               __nv_bfloat16* __restrict__ out,           // (B, H, hd)
-              int s, int hkv, int group, int hd, float scale) {
-  const int b = blockIdx.x;
-  const int h = blockIdx.y;
-  const size_t head0 = ((size_t)b * hkv * group + (size_t)h * group) * hd;
-  const ContiguousRows kv{((size_t)b * s * hkv + h) * hd, hkv * hd};
+              int s, int hkv, decode_attn::Geometry geo, float scale) {
+  const int h = blockIdx.y / geo.n_gb;
+  const int g0 = (blockIdx.y - h * geo.n_gb) * GM;
+  const int b = blockIdx.z;
+  const size_t q0 = ((size_t)b * hkv * geo.group + (size_t)h * geo.group + g0) *
+                    geo.hd;
+  const ContiguousRows kv{((size_t)b * s * hkv + h) * geo.hd, hkv * geo.hd};
   const int len = max(0, min(lengths[b], s));
-  decode_attn::tile_loop(q + head0, k, v, kv, len, out + head0, group, hd,
-                         kTileRows, scale);
+  decode_attn::split_decode<GM, HDM>(q + q0, k, v, kv, len,
+                                     min(GM, geo.group - g0), out + q0, geo,
+                                     scale);
+}
+
+template <int GM, int HDM>
+cudaError_t launch(const decode_attn::Geometry& geo, const void* q,
+                   const void* k, const void* v, const void* lengths,
+                   void* out, int batch, int s, int hkv, float scale,
+                   void* stream) {
+  const size_t smem = decode_attn::smem_bytes(geo);
+  cudaError_t e = decode_attn::allow_smem(decode_kernel<GM, HDM>, smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid(decode_attn::kRanks, hkv * geo.n_gb, batch);
+  decode_kernel<GM, HDM><<<grid, decode_attn::kThreads, smem,
+                           (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+      (const __nv_bfloat16*)v, (const int*)lengths, (__nv_bfloat16*)out,
+      s, hkv, geo, scale);
+  return cudaGetLastError();
 }
 
 }  // namespace
+
+// The partition the kernels share, for the Python wrapper to check against
+// its own constants: ranks a sequence's keys are dealt to, and keys of a
+// contiguous-cache granule (the paged kernel's granule is one page).
+extern "C" int decode_attention_geometry(int* ranks, int* granule) {
+  *ranks = decode_attn::kRanks;
+  *granule = decode_attn::kGranule;
+  return 0;
+}
 
 // hd must be a multiple of 8 and every pointer 16-byte aligned (the
 // Python wrapper checks both); group * hd <= 1024.
@@ -59,14 +88,16 @@ extern "C" int decode_attention_bf16(
     const void* q, const void* k, const void* v, const void* lengths,
     void* out, int batch, int s, int hkv, int group, int hd, float scale,
     void* stream) {
+  int gm, hdm;
   if (!decode_attn::shape_ok(group, hd)) return (int)cudaErrorInvalidValue;
-  const size_t smem = decode_attn::smem_bytes(group, hd, kTileRows);
-  cudaError_t e = decode_attn::allow_smem(decode_kernel, smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid(batch, hkv);
-  decode_kernel<<<grid, decode_attn::kThreads, smem, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (const int*)lengths, (__nv_bfloat16*)out,
-      s, hkv, group, hd, scale);
-  return (int)cudaGetLastError();
+  decode_attn::pick(group, hd, &gm, &hdm);
+  const decode_attn::Geometry geo = decode_attn::make_geometry(
+      group, hd, gm, decode_attn::kGranule, 0, false);
+#define DECODE_ATTN_LAUNCH(G_, H_)                                        \
+  if (gm == G_ && hdm == H_)                                              \
+    return (int)launch<G_, H_>(geo, q, k, v, lengths, out, batch, s, hkv, \
+                               scale, stream);
+  DECODE_ATTN_SHAPES(DECODE_ATTN_LAUNCH)
+#undef DECODE_ATTN_LAUNCH
+  return (int)cudaErrorInvalidValue;
 }

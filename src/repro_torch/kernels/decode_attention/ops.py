@@ -5,21 +5,43 @@
 ``csrc/paged_decode_attention.cu``) for tensors on the card and take the
 plain versions (``ref.py``) for tensors on the CPU.  Launches route
 through the (no-op by default) kernel profiler.
+
+Both kernels split each (sequence, kv head) over a cluster of
+``SPLIT_RANKS`` blocks, dealing its keys round robin in granules of
+``SPLIT_GRANULE`` keys (the contiguous kernel) or one page (the paged
+kernel); ``ref.py``'s split versions model that partition on the host.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 
 import torch
 
 from ..build import check, library
-from .ref import decode_attention_ref, paged_decode_attention_ref
+from .ref import (SPLIT_GRANULE, SPLIT_RANKS, decode_attention_ref,
+                  paged_decode_attention_ref)
 from ...obs.profiling import profiled
 
-__all__ = ["decode_attention", "decode_attention_cuda",
-           "paged_decode_attention", "paged_decode_attention_cuda",
-           "tune_block_s"]
+__all__ = ["SPLIT_GRANULE", "SPLIT_RANKS", "decode_attention",
+           "decode_attention_cuda", "paged_decode_attention",
+           "paged_decode_attention_cuda", "tune_block_s"]
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    """The kernel library, once its partition is checked against ours."""
+    lib = library()
+    ranks, granule = ctypes.c_int(), ctypes.c_int()
+    lib.decode_attention_geometry(ctypes.byref(ranks), ctypes.byref(granule))
+    if (ranks.value, granule.value) != (SPLIT_RANKS, SPLIT_GRANULE):
+        raise RuntimeError(
+            f"the kernel library splits keys over {ranks.value} ranks in "
+            f"{granule.value}-key granules, not {SPLIT_RANKS} and "
+            f"{SPLIT_GRANULE}")
+    return lib
 
 
 def tune_block_s(s: int, block_s: int = 512, floor: int = 128) -> int:
@@ -32,8 +54,8 @@ def tune_block_s(s: int, block_s: int = 512, floor: int = 128) -> int:
     a 40-row pad at block 128 instead of a 424-row pad at block 512).
 
     The Pallas kernel's block choice, kept as a host function under its
-    JAX name; the CUDA kernel walks fixed 64-key tiles and stops at each
-    row's length, so it has no block size to tune.
+    JAX name; the CUDA kernel deals fixed granules to its ranks and stops
+    at each row's length, so it has no block size to tune.
     """
     block_s = max(1, min(block_s, s))
     best, best_pad = block_s, (-s) % block_s
@@ -86,7 +108,7 @@ def decode_attention_cuda(q, k_cache, v_cache, lengths):
     if (q.data_ptr() | k_cache.data_ptr() | v_cache.data_ptr()) % 16:
         raise ValueError("q and the caches must be 16-byte aligned")
     out = torch.empty_like(q)
-    err = library().decode_attention_bf16(
+    err = _library().decode_attention_bf16(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         lengths.data_ptr(), out.data_ptr(), b, s, hkv, g, hd,
         1.0 / math.sqrt(hd), torch.cuda.current_stream(q.device).cuda_stream)
@@ -115,7 +137,10 @@ def paged_decode_attention_cuda(q, k_pages, v_pages, block_tables, lengths):
     block_tables (B, MP) int32; lengths (B,) int32 -> (B, H, hd) bf16.
 
     Table entries must index pages of ``k_pages`` for every page a
-    sequence's length reaches; entries past it are never read."""
+    sequence's length reaches; entries past it are never read.  A page is
+    staged whole in shared memory, so the kernel refuses (``RuntimeError``)
+    a page longer than 256 keys at hd 64, 128 at hd 128, 64 at hd 256, 32
+    at hd 512 and 16 at hd 1024."""
     np_, ps, hkv, hd = k_pages.shape
     b, h = q.shape[0], q.shape[1]
     if q.dim() != 3 or q.shape[2] != hd or h % hkv:
@@ -135,7 +160,7 @@ def paged_decode_attention_cuda(q, k_pages, v_pages, block_tables, lengths):
     if (q.data_ptr() | k_pages.data_ptr() | v_pages.data_ptr()) % 16:
         raise ValueError("q and the pages must be 16-byte aligned")
     out = torch.empty_like(q)
-    err = library().paged_decode_attention_bf16(
+    err = _library().paged_decode_attention_bf16(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
         b, hkv, g, hd, ps, block_tables.shape[1], 1.0 / math.sqrt(hd),

@@ -1,5 +1,6 @@
 """Plain PyTorch versions of the flash-decode kernels (contiguous and
-paged), the ports of ``repro.kernels.decode_attention.ref``."""
+paged), the ports of ``repro.kernels.decode_attention.ref``, and plain
+models of the kernels' split-key algorithm (``*_split_ref``)."""
 
 from __future__ import annotations
 
@@ -54,3 +55,89 @@ def paged_decode_attention_ref(q, k_pages, v_pages, block_tables, lengths):
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", p.to(vc.dtype), vc)
     return out.reshape(b, h, hd)
+
+
+#: blocks of the kernels' cluster that share one (sequence, kv head); the
+#: wrapper in ``ops.py`` checks the kernel library against these two
+SPLIT_RANKS = 8
+#: keys of a contiguous-cache granule; granule j goes to rank j % SPLIT_RANKS
+SPLIT_GRANULE = 16
+
+
+def _split_attend(qg, k, v, n: int, granule: int):
+    """One sequence as the kernels' cluster computes it, in f32.
+
+    qg (Hkv, G, hd); k/v (T, Hkv, hd) with key t at row t; the first ``n``
+    keys attend -> (Hkv, G, hd) f32.  Key t belongs to rank
+    ``(t // granule) % SPLIT_RANKS``.  Each rank takes the softmax of its
+    own keys, (m_r, l_r, acc_r), or (-1e30, 0, 0) when it has none; the
+    ranks combine in rank order, each rescaled by exp(m_r - max_r m_r), and
+    the output is acc / max(l, 1e-20): zeros when ``n`` is 0.  The kernels
+    walk a rank's keys in tiles with an online softmax, which differs from
+    this only in rounding.
+    """
+    hkv, g, hd = qg.shape
+    scale = 1.0 / math.sqrt(hd)
+    scores = torch.einsum("kgd,tkd->kgt", qg.float(), k[:n].float()) * scale
+    keys = torch.arange(n, device=qg.device)
+    owner = (keys // granule) % SPLIT_RANKS
+    parts = []
+    for r in range(SPLIT_RANKS):
+        idx = keys[owner == r]
+        if not len(idx):
+            parts.append((torch.full((hkv, g, 1), -1e30, device=qg.device),
+                          torch.zeros((hkv, g, 1), device=qg.device),
+                          torch.zeros((hkv, g, hd), device=qg.device)))
+            continue
+        s = scores[..., idx]
+        m_r = s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s - m_r)
+        parts.append((m_r, p.sum(dim=-1, keepdim=True),
+                      torch.einsum("kgt,tkd->kgd", p, v[idx].float())))
+    m = torch.stack([m_r for m_r, _, _ in parts]).amax(dim=0)
+    acc = torch.zeros((hkv, g, hd), device=qg.device)
+    l = torch.zeros((hkv, g, 1), device=qg.device)
+    for m_r, l_r, a_r in parts:
+        w = torch.exp(m_r - m)
+        acc = acc + w * a_r
+        l = l + w * l_r
+    return acc / torch.clamp(l, min=1e-20)
+
+
+def decode_attention_split_ref(q, k_cache, v_cache, lengths):
+    """The contiguous kernel's algorithm, in f32, one row at a time.
+
+    q (B, H, hd); k/v (B, S, Hkv, hd); lengths (B,) -> (B, H, hd) in q's
+    dtype.  Row b attends over its first ``min(lengths[b], S)`` keys, dealt
+    to the ranks in ``SPLIT_GRANULE``-key granules; a row of length 0 gets
+    zeros, as from the kernel.  Each row is computed alone, so its output
+    does not depend on its batch-mates."""
+    b, s, hkv, hd = k_cache.shape
+    h = q.shape[1]
+    qg = q.reshape(b, hkv, h // hkv, hd)
+    out = [_split_attend(qg[i], k_cache[i], v_cache[i],
+                         max(0, min(int(lengths[i]), s)), SPLIT_GRANULE)
+           for i in range(b)]
+    return torch.stack(out).reshape(b, h, hd).to(q.dtype)
+
+
+def paged_decode_attention_split_ref(q, k_pages, v_pages, block_tables,
+                                     lengths):
+    """The paged kernel's algorithm, in f32, one sequence at a time.
+
+    q (B, H, hd); k/v_pages (NP, PS, Hkv, hd); block_tables (B, MP);
+    lengths (B,) -> (B, H, hd) in q's dtype.  A granule is one page: page
+    j of a sequence goes to rank j % ``SPLIT_RANKS``.  Only the table entries
+    and slots a sequence's length reaches are read."""
+    np_, ps, hkv, hd = k_pages.shape
+    b, mp = block_tables.shape
+    h = q.shape[1]
+    qg = q.reshape(b, hkv, h // hkv, hd)
+    out = []
+    for i in range(b):
+        n = max(0, min(int(lengths[i]), mp * ps))
+        pages = block_tables[i, :-(-n // ps)].long()
+        k = k_pages[pages].reshape(-1, hkv, hd)
+        v = v_pages[pages].reshape(-1, hkv, hd)
+        out.append(_split_attend(qg[i], k, v, n, ps))
+    return torch.stack(out).reshape(b, h, hd).to(q.dtype)

@@ -7,9 +7,14 @@ JAX:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Each kernel is held against its plain version on the same CUDA tensors at
-the slice's shapes; the engine's batched greedy tokens must equal its
-one-at-a-time tokens through the kernels, and the one-at-a-time path
-behind the Router keeps its tokens with the prefix cache on or off.
+the slice's shapes, and the two attention kernels against the plain models
+of their split-key algorithm, on the same inputs cast to f32, at lengths
+that cross its granule and rank boundaries and at one shape for every
+(query rows, head-dim capacity) the kernels are built for (atol 1e-4 /
+rtol 4e-3: the kernels round their output to bf16); the engine's batched
+greedy tokens must equal its one-at-a-time tokens through the kernels, and
+the one-at-a-time path behind the Router keeps its tokens with the prefix
+cache on or off.
 """
 
 import numpy as np
@@ -21,7 +26,8 @@ from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.decode_attention.ops import (
     decode_attention_cuda, paged_decode_attention_cuda)
 from repro_torch.kernels.decode_attention.ref import (
-    decode_attention_ref, paged_decode_attention_ref)
+    decode_attention_ref, decode_attention_split_ref,
+    paged_decode_attention_ref, paged_decode_attention_split_ref)
 from repro_torch.kernels.pmf_conv.ops import pmf_conv_cuda
 from repro_torch.kernels.pmf_conv.ref import pmf_conv_ref
 from repro_torch.kernels.rmsnorm.ops import rmsnorm_triton
@@ -43,7 +49,7 @@ def cuda():
     return torch.device("cuda")
 
 
-def _paged(cuda, b, mp=64, ps=16, h=15, hkv=5, hd=64, seed=0):
+def _paged(cuda, b, mp=64, ps=16, h=15, hkv=5, hd=64, seed=0, lens=None):
     g = torch.Generator(device=cuda).manual_seed(seed)
     n_pages = b * mp + 1
     q = torch.randn((b, h, hd), generator=g, device=cuda).bfloat16()
@@ -53,11 +59,13 @@ def _paged(cuda, b, mp=64, ps=16, h=15, hkv=5, hd=64, seed=0):
                      device=cuda).bfloat16()
     kp[0], vp[0] = 1000.0, -1000.0                 # poisoned pad page
     rng = np.random.default_rng(seed)
-    lens = rng.integers(1, mp * ps + 1, size=b).astype(np.int32)
+    if lens is None:
+        lens = rng.integers(1, mp * ps + 1, size=b)
+    lens = np.asarray(lens, np.int32)
     perm = rng.permutation(n_pages - 1) + 1
     tables = np.zeros((b, mp), np.int32)
     for i, n in enumerate(lens):
-        npg = -(-int(n) // ps)
+        npg = min(-(-int(n) // ps), mp)
         tables[i, :npg] = perm[i * mp:i * mp + npg]
     return (q, kp, vp, torch.from_numpy(tables).to(cuda),
             torch.from_numpy(lens).to(cuda))
@@ -125,6 +133,159 @@ def test_decode_attention_zero_length_row(cuda):
     out = decode_attention_cuda(q, k, v, ln)
     assert torch.equal(out[1], torch.zeros_like(out[1]))
     assert torch.isfinite(out.float()).all()
+
+
+#: lengths that start, fill and cross a 16-key granule (one page) and the
+#: 8-rank deal (128 keys), and the capacity
+BOUNDARY_LENGTHS = (0, 1, 15, 16, 17, 127, 128, 129, 1024)
+
+
+def _f32(*args):
+    """The inputs as the split models take them to stand for the kernels:
+    bf16 cast to f32, so the model's output is not rounded to bf16 and
+    the kernel's own rounding, at most half a bf16 ulp (2^-8 of a value),
+    is all that rtol 4e-3 has to cover."""
+    return [a.float() if a.dtype == torch.bfloat16 else a for a in args]
+
+
+#: (G, Hkv, hd): one per (query rows, head-dim capacity) instantiation of
+#: the kernels (``DECODE_ATTN_SHAPES`` in ``csrc/decode_attention.cuh``),
+#: then head dims below their capacity (96, 40), a group below its
+#: instantiation's rows (5 on 8) and groups cut into two query blocks (12,
+#: 16 on 8)
+KERNEL_SHAPES = [(1, 2, 64), (2, 2, 64), (3, 5, 64), (4, 2, 64), (8, 2, 64),
+                 (1, 2, 128), (2, 2, 128), (4, 2, 128), (8, 2, 128),
+                 (1, 2, 256), (2, 2, 256), (4, 2, 256), (1, 2, 512),
+                 (2, 2, 512), (1, 2, 1024), (3, 2, 96), (5, 2, 40),
+                 (12, 1, 64), (16, 2, 64)]
+#: one row per length: the granule and rank boundaries, 600 and 1,100 keys
+#: (three tiles of rank 0 at hd 64, so both ring stages are reused), and a
+#: length past the 1,100-key capacity, which the kernels clamp
+SWEEP_LENGTHS = (0, 1, 15, 16, 17, 127, 128, 129, 600, 1100, 1200)
+
+
+@pytest.mark.parametrize("group,hkv,hd", KERNEL_SHAPES)
+def test_decode_attention_kernel_every_shape(cuda, group, hkv, hd):
+    q, k, v, _ = _contiguous(cuda, len(SWEEP_LENGTHS), 1100, h=group * hkv,
+                             hkv=hkv, hd=hd, seed=group * hd)
+    ln = torch.tensor(SWEEP_LENGTHS, dtype=torch.int32, device=cuda)
+    got = decode_attention_cuda(q, k, v, ln)
+    torch.testing.assert_close(
+        got.float(), decode_attention_split_ref(*_f32(q, k, v, ln)),
+        atol=1e-4, rtol=4e-3)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+
+
+@pytest.mark.parametrize("group,hkv,hd,ps", [
+    *[(g, hkv, hd, 16) for g, hkv, hd in KERNEL_SHAPES],
+    (3, 5, 64, 8), (3, 5, 64, 32), (3, 5, 64, 128), (8, 2, 128, 32),
+    (2, 2, 256, 32), (4, 2, 256, 64), (1, 2, 1024, 8)])
+def test_paged_attention_kernel_every_shape(cuda, group, hkv, hd, ps):
+    """Every instantiation at page size 16, and pages of 8 to 128 keys (a
+    granule is one page: a tile holds 8, 4, 2 or 1 of them, and a 128-key
+    page is one tile, scored in two blocks of 64 keys)."""
+    args = _paged(cuda, len(SWEEP_LENGTHS), mp=-(-1100 // ps), ps=ps,
+                  h=group * hkv, hkv=hkv, hd=hd, seed=group * hd + ps,
+                  lens=SWEEP_LENGTHS)
+    got = paged_decode_attention_cuda(*args)
+    torch.testing.assert_close(
+        got.float(), paged_decode_attention_split_ref(*_f32(*args)),
+        atol=1e-4, rtol=4e-3)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+
+
+@pytest.mark.parametrize("length", BOUNDARY_LENGTHS)
+def test_decode_attention_kernel_matches_split_ref(cuda, length):
+    q, k, v, ln = _contiguous(cuda, 3, 1024, seed=30 + length)
+    ln[0] = length
+    torch.testing.assert_close(
+        decode_attention_cuda(q, k, v, ln).float(),
+        decode_attention_split_ref(*_f32(q, k, v, ln)), atol=1e-4,
+        rtol=4e-3)
+
+
+@pytest.mark.parametrize("length", BOUNDARY_LENGTHS)
+def test_paged_attention_kernel_matches_split_ref(cuda, length):
+    args = _paged(cuda, 3, seed=30 + length, lens=[length, 1024, 45])
+    torch.testing.assert_close(
+        paged_decode_attention_cuda(*args).float(),
+        paged_decode_attention_split_ref(*_f32(*args)), atol=1e-4,
+        rtol=4e-3)
+
+
+def test_paged_attention_refuses_a_page_too_big_for_shared_memory(cuda):
+    """A 128-key page at hd 256 needs a 256 KB ring: the launch is refused
+    with an error, and leaves none behind for the next launch."""
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        paged_decode_attention_cuda(*_paged(cuda, 2, mp=2, ps=128, h=2,
+                                            hkv=2, hd=256, lens=[5, 200]))
+    args = _paged(cuda, 2, mp=8, ps=32, h=2, hkv=2, hd=256, lens=[5, 200])
+    torch.testing.assert_close(
+        paged_decode_attention_cuda(*args).float(),
+        paged_decode_attention_split_ref(*_f32(*args)), atol=1e-4,
+        rtol=4e-3)
+
+
+def test_attention_kernels_are_deterministic(cuda):
+    """No atomics: two calls on the same inputs give the same bits."""
+    q, k, v, ln = _contiguous(cuda, 8, 1024, seed=41)
+    assert torch.equal(decode_attention_cuda(q, k, v, ln),
+                       decode_attention_cuda(q, k, v, ln))
+    args = _paged(cuda, 8, seed=41)
+    assert torch.equal(paged_decode_attention_cuda(*args),
+                       paged_decode_attention_cuda(*args))
+
+
+def test_long_row_alone_equals_row_in_batch(cuda):
+    """B=8 with one 1,024-key row: the key deal does not depend on B, so
+    every row alone has the bits it has in the batch."""
+    q, k, v, ln = _contiguous(cuda, 8, 1024, seed=42)
+    ln[0] = 1024
+    full = decode_attention_cuda(q, k, v, ln)
+    for i in range(8):
+        one = decode_attention_cuda(q[i:i + 1].contiguous(),
+                                    k[i:i + 1].contiguous(),
+                                    v[i:i + 1].contiguous(),
+                                    ln[i:i + 1].contiguous())
+        assert torch.equal(one[0], full[i])
+    lens = np.random.default_rng(42).integers(1, 1025, size=8)
+    lens[0] = 1024
+    q, kp, vp, tab, ln = _paged(cuda, 8, seed=42, lens=lens)
+    full = paged_decode_attention_cuda(q, kp, vp, tab, ln)
+    for i in range(8):
+        one = paged_decode_attention_cuda(q[i:i + 1].contiguous(), kp, vp,
+                                          tab[i:i + 1].contiguous(),
+                                          ln[i:i + 1].contiguous())
+        assert torch.equal(one[0], full[i])
+
+
+def test_zero_length_row_in_a_long_batch(cuda):
+    q, k, v, ln = _contiguous(cuda, 8, 1024, seed=43)
+    ln[0], ln[3] = 1024, 0
+    out = decode_attention_cuda(q, k, v, ln)
+    assert torch.equal(out[3], torch.zeros_like(out[3]))
+    assert torch.isfinite(out.float()).all()
+    lens = [1024, 700, 0, 64, 1, 333, 1024, 17]
+    out = paged_decode_attention_cuda(*_paged(cuda, 8, seed=43, lens=lens))
+    assert torch.equal(out[2], torch.zeros_like(out[2]))
+    assert torch.isfinite(out.float()).all()
+
+
+def test_paged_attention_never_reads_past_the_length(cuda):
+    """Page 0 holds +-1000 (the pad page) and every table entry past a
+    sequence's last page is replaced by one that indexes no page at all:
+    the output keeps its bits and matches the split model."""
+    q, kp, vp, tab, ln = _paged(cuda, 8, seed=44)
+    want = paged_decode_attention_cuda(q, kp, vp, tab, ln)
+    poisoned = tab.clone()
+    for i, n in enumerate(ln.tolist()):
+        poisoned[i, -(-n // kp.shape[1]):] = 2 ** 30
+    assert torch.equal(paged_decode_attention_cuda(q, kp, vp, poisoned, ln),
+                       want)
+    torch.testing.assert_close(
+        want.float(), paged_decode_attention_split_ref(*_f32(q, kp, vp, tab,
+                                                             ln)),
+        atol=1e-4, rtol=4e-3)
 
 
 def test_decode_step_launches_the_kernel_per_layer(cuda):

@@ -5,7 +5,10 @@ tensor on the CPU) against the JAX Pallas kernel in interpret mode and
 against the JAX ref, with ``tests/test_kernels.py``'s tolerances
 (pmf_conv atol 1e-6 / rtol 1e-5; decode attention 2e-5 in f32 and 2e-2 in
 bf16; rmsnorm 1e-5 in f32 and 2e-2 in bf16).  Inputs come from seeded numpy generators
-and cross the boundary as numpy arrays.
+and cross the boundary as numpy arrays.  The plain models of the attention
+kernels' split-key algorithm (``*_split_ref``) are held to the Pallas
+kernels and the f32 plain versions at atol/rtol 1e-5 in f32, at lengths
+that cross their granule and rank boundaries.
 
 The kernels themselves run only on a card: ``test_torch_cuda.py``.
 """
@@ -34,9 +37,14 @@ from repro_torch.bridge import to_tensor
 from repro_torch.core.pmf import PMF as TPMF
 from repro_torch.core.pmf import chance_of_success as t_chance_of_success
 from repro_torch.kernels import launch_counts, reset_launch_counts
+from repro_torch.kernels.decode_attention import ops as attn_ops
 from repro_torch.kernels.decode_attention.ops import (
-    decode_attention, decode_attention_cuda, paged_decode_attention,
-    paged_decode_attention_cuda, tune_block_s)
+    SPLIT_GRANULE, SPLIT_RANKS, decode_attention, decode_attention_cuda,
+    paged_decode_attention, paged_decode_attention_cuda, tune_block_s)
+from repro_torch.kernels.decode_attention import ref as attn_ref
+from repro_torch.kernels.decode_attention.ref import (
+    decode_attention_ref, decode_attention_split_ref,
+    paged_decode_attention_ref, paged_decode_attention_split_ref)
 from repro_torch.models import layers as L
 from repro_torch.kernels.pmf_conv.ops import (batched_success, pmf_conv,
                                               pmf_conv_cuda)
@@ -277,6 +285,123 @@ class TestDecodeAttention:
             for block_s in (64, 512):
                 assert tune_block_s(s, block_s) == \
                     jax_tune_block_s(s, block_s)
+
+
+# ---------------------------------------------------------------------------
+# the split-key models of both attention kernels
+# ---------------------------------------------------------------------------
+
+#: lengths that start, fill and cross a 16-key granule and the 8-rank deal
+#: (8 x 16 = 128 keys), and the capacity (160 keys below)
+BOUNDARY_LENGTHS = (0, 1, 15, 16, 17, 127, 128, 129, 160)
+
+
+def _split_case(length, seed):
+    """Three rows: ``length``, the capacity and 77 keys."""
+    return np.asarray([length, 160, 77], np.int32), seed + length
+
+
+class TestSplitRefs:
+    @pytest.mark.parametrize("length", BOUNDARY_LENGTHS)
+    def test_contiguous_matches_pallas_and_plain(self, length):
+        lens, seed = _split_case(length, 20)
+        q, k, v, _ = _decode_data(3, 160, 6, 2, 32, seed=seed)
+        got = decode_attention_split_ref(*_t(q, k, v, lens)).numpy()
+        args = tuple(map(jnp.asarray, (q, k, v, lens)))
+        pallas = np.asarray(decode_attention_pallas(*args, block_s=32,
+                                                    interpret=True))
+        np.testing.assert_allclose(got, pallas, atol=1e-5, rtol=1e-5)
+        plain = decode_attention_ref(*_t(q, k, v, lens)).numpy()
+        live = lens > 0        # the plain versions give NaN at length 0
+        np.testing.assert_allclose(got[live], plain[live], atol=1e-5,
+                                   rtol=1e-5)
+        if not live.all():
+            np.testing.assert_array_equal(got[~live], 0.0)
+
+    @pytest.mark.parametrize("length", BOUNDARY_LENGTHS)
+    def test_paged_matches_pallas_and_plain(self, length):
+        lens, seed = _split_case(length, 40)
+        q, kp, vp, tables, _ = _paged_data(3, 10, 16, 6, 2, 32, seed=seed)
+        got = paged_decode_attention_split_ref(
+            *_t(q, kp, vp, tables, lens)).numpy()
+        args = tuple(map(jnp.asarray, (q, kp, vp, tables, lens)))
+        pallas = np.asarray(paged_decode_attention_pallas(*args,
+                                                          interpret=True))
+        np.testing.assert_allclose(got, pallas, atol=1e-5, rtol=1e-5)
+        plain = paged_decode_attention_ref(
+            *_t(q, kp, vp, tables, lens)).numpy()
+        live = lens > 0
+        np.testing.assert_allclose(got[live], plain[live], atol=1e-5,
+                                   rtol=1e-5)
+        if not live.all():
+            np.testing.assert_array_equal(got[~live], 0.0)
+
+    def test_paged_granule_is_a_page(self):
+        """At page size 8 a granule is one 8-key page: the model still
+        matches the Pallas kernel across page and rank boundaries."""
+        q, kp, vp, tables, _ = _paged_data(4, 20, 8, 4, 1, 16, seed=7)
+        lens = np.asarray([7, 8, 65, 160], np.int32)
+        got = paged_decode_attention_split_ref(*_t(q, kp, vp, tables, lens))
+        want = paged_decode_attention_pallas(
+            *map(jnp.asarray, (q, kp, vp, tables, lens)), interpret=True)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                                   rtol=1e-5)
+
+    def test_contiguous_row_alone_equals_row_in_batch(self):
+        q, k, v, _ = _decode_data(5, 160, 6, 2, 32, seed=11)
+        lens = np.asarray([0, 17, 129, 160, 64], np.int32)
+        full = decode_attention_split_ref(*_t(q, k, v, lens))
+        for i in range(5):
+            one = decode_attention_split_ref(
+                *_t(q[i:i + 1], k[i:i + 1], v[i:i + 1], lens[i:i + 1]))
+            assert torch.equal(one[0], full[i])
+
+    def test_paged_row_alone_equals_row_in_batch(self):
+        q, kp, vp, tables, _ = _paged_data(5, 10, 16, 6, 2, 32, seed=12)
+        lens = np.asarray([0, 17, 129, 160, 64], np.int32)
+        full = paged_decode_attention_split_ref(*_t(q, kp, vp, tables, lens))
+        for i in range(5):
+            one = paged_decode_attention_split_ref(
+                *_t(q[i:i + 1], kp, vp, tables[i:i + 1], lens[i:i + 1]))
+            assert torch.equal(one[0], full[i])
+
+    def test_keys_past_the_length_are_never_read(self):
+        """Poisoned keys past each length, and table entries past each
+        sequence's last page that index no page at all, change nothing."""
+        q, k, v, _ = _decode_data(2, 64, 4, 2, 16, seed=13)
+        lens = np.asarray([17, 40], np.int32)
+        want = decode_attention_split_ref(*_t(q, k, v, lens))
+        k[0, 17:], v[0, 17:], k[1, 40:], v[1, 40:] = 99.0, -99.0, 99.0, -99.0
+        assert torch.equal(decode_attention_split_ref(*_t(q, k, v, lens)),
+                           want)
+        q, kp, vp, tables, _ = _paged_data(2, 4, 16, 4, 2, 16, seed=14)
+        want = paged_decode_attention_split_ref(*_t(q, kp, vp, tables, lens))
+        tables[0, 2:], tables[1, 3:] = 10 ** 6, -1
+        assert torch.equal(
+            paged_decode_attention_split_ref(*_t(q, kp, vp, tables, lens)),
+            want)
+
+    def test_partition_constants_agree(self):
+        """The partition the wrapper checks the kernel library against (when
+        it loads) is the one the split models deal: one definition."""
+        assert SPLIT_RANKS is attn_ref.SPLIT_RANKS
+        assert SPLIT_GRANULE is attn_ref.SPLIT_GRANULE
+        assert (SPLIT_RANKS, SPLIT_GRANULE) == (8, 16)
+
+    def test_library_with_another_partition_is_refused(self, monkeypatch):
+        class FakeLib:
+            @staticmethod
+            def decode_attention_geometry(ranks, granule):
+                ranks._obj.value, granule._obj.value = 4, 16
+                return 0
+
+        monkeypatch.setattr(attn_ops, "library", lambda: FakeLib)
+        attn_ops._library.cache_clear()
+        try:
+            with pytest.raises(RuntimeError, match="4 ranks"):
+                attn_ops._library()
+        finally:
+            attn_ops._library.cache_clear()
 
 
 class _FakeCuda:
