@@ -5,9 +5,8 @@
 
 Phases (any failure exits non-zero and prints no result line):
 
-1. Print the card's name and power limit; build the kernels from the
-   sources in the checkout (nvcc for the CUDA C++ library, Triton's JIT
-   for RMSNorm).
+1. Print the card's name and power limit; build the four CUDA C++ sources
+   in the checkout with nvcc (one library, loaded with ctypes).
 2. Hold each kernel against its plain PyTorch version on the card, at the
    main paths' shapes, and time kernel, plain version and the one-call
    PyTorch yardstick where there is one (device time a call from
@@ -42,10 +41,19 @@ Phases (any failure exits non-zero and prints no result line):
      keys); ``scaled_dot_product_attention`` over the same keys gathered
      into a contiguous cache is printed beside it, but is not the same
      function (no block table), so the row's ``library_ms`` stays null;
-   * RMSNorm on (8, 1, 960) and (64, 960) bf16 (atol/rtol 2e-2, one bf16
-     rounding apart);
-   * the PMF convolution on (32, 64), deadlines below, inside and above
-     the grid (f32, atol 1e-6 / rtol 1e-5).
+   * RMSNorm on (8, 1, 960), (1, 1, 960) and (64, 960) bf16 and at one
+     shape for each instantiation of its kernel, bf16 and f32: against the
+     plain version at one bf16 ulp (atol 1e-5 / rtol 8e-3) or, in f32, at
+     1e-5; at most 1e-3 of the bf16 outputs not bit-equal (the kernel
+     rounds x * r to bf16 before the scale, as the plain version does;
+     rounding once changes about a quarter of them); each row alone
+     bit-equal to the same row in the batch, and two calls bit-equal;
+   * the PMF convolution on (32, 64) and (32, 128), deadlines below, inside
+     and above the grid (f32, atol 1e-6 / rtol 1e-5), and its front door
+     ``batched_success`` at (32, 64) against ``chance_of_success`` (1e-5),
+     with its wall a call;
+   * the floor of a launch: the library's empty kernel through the same
+     ctypes route, device time and back-to-back wall a call.
 3. The batched path: a full-width smollm-360m ``ServingEngine`` with
    continuous batching, pruning and success-chance elasticity serves 16
    greedy requests (4 shared 32-token system prompts + 6-token suffixes,
@@ -66,11 +74,13 @@ Phases (any failure exits non-zero and prints no result line):
 5. The port's launcher, ``python -m repro_torch.launch.serve``, runs as a
    subprocess on the card and must print a summary with completed > 0.
 6. Print tokens/s, decode-step walls, per-kernel launches and times, the
-   kernel JSON line, and last the device JSON line.
+   kernel JSON line (with each kernel's back-to-back wall a call,
+   ``wall_ms``), and last the device JSON line.
 """
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import re
@@ -431,44 +441,99 @@ def check_paged_attention(mc, max_len: int, max_batch: int, ps: int) -> dict:
                      f"no block table)"}
 
 
+#: one bf16 ulp: the kernel's f32 1 / rms differs from the plain version's
+#: in its last bits (another summation order), which moves x * r across a
+#: rounding point of the cast to bf16 now and then
+RMS_TOL = {torch.bfloat16: (1e-5, 8e-3), torch.float32: (1e-5, 1e-5)}
+#: row widths that reach every instantiation of the RMSNorm kernel
+RMS_D = (64, 256, 512, 960, 2048, 2560, 4096, 5120, 7168)
+#: the largest share of bf16 outputs that may differ from the plain
+#: version's bits (0 of 160,192 on the H100): a kernel that rounds x * r
+#: times the scale once, skipping the cast of x * r, changes about a quarter
+RMS_DIFFER_MAX = 1e-3
+
+
+def rms_geometry(d: int, dtype) -> tuple[int, int] | None:
+    """The (warps, vectors a lane) instantiation the library picks for rows
+    of ``d`` elements of ``dtype``, or None if it takes no such row."""
+    from repro_torch.kernels.build import library
+    warps, vpl = ctypes.c_int(), ctypes.c_int()
+    err = library().rmsnorm_geometry(d, dtype.itemsize, ctypes.byref(warps),
+                                     ctypes.byref(vpl))
+    return None if err else (warps.value, vpl.value)
+
+
 def check_rmsnorm(mc, max_batch: int, budget: int) -> dict:
-    from repro_torch.kernels.rmsnorm.ops import rmsnorm_triton
+    """RMSNorm at the main paths' shapes and at one shape per instantiation
+    against the plain version (one bf16 ulp; f32 at 1e-5), each row alone
+    against the same row in the batch and two calls against each other, bit
+    for bit; timed at the batched path's decode shape."""
+    from repro_torch.kernels.rmsnorm.ops import MAX_D, rmsnorm_cuda
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     d = mc.d_model
-    scale = (1.0 + 0.1 * torch.randn((d,), generator=g, device=dev)) \
-        .to(torch.bfloat16)
-    worst, xs = 0.0, {}
-    for shape in ((max_batch, 1, d), (budget, d)):
-        x = (3.0 * torch.randn(shape, generator=g, device=dev)) \
-            .to(torch.bfloat16)
-        got = rmsnorm_triton(x, scale)
+    cases = [((max_batch, 1, d), torch.bfloat16), ((1, 1, d), torch.bfloat16),
+             ((budget, d), torch.bfloat16)]
+    for dt in (torch.bfloat16, torch.float32):
+        per_vec = 16 // dt.itemsize
+        every = {rms_geometry(w, dt) for w in range(per_vec, MAX_D + 1,
+                                                    per_vec)}
+        first = {}
+        for w in RMS_D:
+            first.setdefault(rms_geometry(w, dt), w)
+        if None in every or set(first) != every:
+            raise AssertionError(f"rmsnorm {dt}: widths up to {MAX_D} take "
+                                 f"{sorted(every, key=str)}, {RMS_D} reach "
+                                 f"{sorted(first, key=str)}")
+        cases += [((max_batch, w), dt) for w in first.values()]
+    worst, differ, total = 0.0, 0, 0
+    for shape, dt in cases:
+        x = (3.0 * torch.randn(shape, generator=g, device=dev)).to(dt)
+        scale = (1.0 + 0.1 * torch.randn(shape[-1:], generator=g,
+                                         device=dev)).to(dt)
+        got = rmsnorm_cuda(x, scale)
         want = rmsnorm_ref(x, scale)
-        assert_close(f"rmsnorm {shape}", got, want, 2e-2, 2e-2)
+        name = f"rmsnorm {shape} {dt}"
+        assert_close(name, got, want, *RMS_TOL[dt])
+        if not torch.equal(got, rmsnorm_cuda(x, scale)):
+            raise AssertionError(f"{name}: two calls differ")
+        rows = x.reshape(-1, shape[-1])
+        for i in range(rows.shape[0]):
+            if not torch.equal(rmsnorm_cuda(rows[i:i + 1], scale)[0],
+                               got.reshape(rows.shape)[i]):
+                raise AssertionError(f"{name}: row {i} alone differs from "
+                                     f"row {i} in the batch")
+        if dt == torch.bfloat16:
+            differ += int((got != want).sum())
+            total += got.numel()
         worst = max(worst, max_err(got, want))
-        xs[shape] = x
-    x = xs[(max_batch, 1, d)]
+        if shape == cases[0][0]:
+            timed = x, scale
+    if differ > RMS_DIFFER_MAX * total:
+        raise AssertionError(f"rmsnorm: {differ} of {total} bf16 outputs "
+                             f"not bit-equal to the plain version, more "
+                             f"than {RMS_DIFFER_MAX}")
+    x, scale = timed
     library = None
     if hasattr(F, "rms_norm"):
         def library():
             F.rms_norm(x, (d,), scale, 1e-5)
     b_ms, b_by = bound(x.numel() * 2 * 2 + d * 2, 4.0 * x.numel())
-    return {"name": "rmsnorm", "route": "triton",
-            "source": "src/repro_torch/kernels/rmsnorm/rmsnorm.py",
+    return {"name": "rmsnorm", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
             "replaces": "src/repro/kernels/rmsnorm/rmsnorm.py:24",
             "max_abs_err": worst,
-            **timings(lambda: rmsnorm_triton(x, scale),
+            **timings(lambda: rmsnorm_cuda(x, scale),
                       lambda: rmsnorm_ref(x, scale), library, iters=200),
             "bound_ms": b_ms, "bound_by": b_by,
-            "shape": f"x {tuple(x.shape)} bf16"}
+            "shape": f"x {tuple(x.shape)} bf16; {len(cases)} shapes, "
+                     f"{differ} of {total} bf16 outputs not bit-equal to "
+                     f"the plain version ({differ / total:.2e})"}
 
 
-def check_pmf_conv(n: int = 32, length: int = 64) -> dict:
-    from repro_torch.kernels.pmf_conv.ops import pmf_conv_cuda
-    from repro_torch.kernels.pmf_conv.ref import pmf_conv_ref
-    dev = torch.device("cuda")
-    rng = np.random.default_rng(SEED + 2)
+def pmf_inputs(n: int, length: int, seed: int):
+    rng = np.random.default_rng(seed)
     pet = rng.random((n, length)).astype(np.float32)
     pet /= pet.sum(axis=1, keepdims=True)
     pct = rng.random((n, length)).astype(np.float32)
@@ -478,18 +543,65 @@ def check_pmf_conv(n: int = 32, length: int = 64) -> dict:
     dl = np.concatenate([np.full(4, -1.0), rng.integers(0, length, n // 2),
                          rng.integers(length, lo, n // 4 - 4),
                          np.full(n - 4 - n // 2 - (n // 4 - 4), lo + 5.0)])
-    pet_t, pct_t = torch.from_numpy(pet).to(dev), torch.from_numpy(pct).to(dev)
-    dl_t = torch.from_numpy(dl.astype(np.float32)).to(dev)
-    out_k, suc_k = pmf_conv_cuda(pet_t, pct_t, dl_t)
-    out_r, suc_r = pmf_conv_ref(pet_t, pct_t, dl_t)
-    assert_close("pmf_conv out", out_k, out_r, 1e-6, 1e-5)
-    assert_close("pmf_conv success", suc_k, suc_r, 1e-6, 1e-5)
-    worst = max(max_err(out_k, out_r), max_err(suc_k, suc_r))
+    dev = torch.device("cuda")
+    return tuple(torch.from_numpy(a.astype(np.float32)).to(dev)
+                 for a in (pet, pct, dl))
+
+
+def success_inputs(n: int, seed: int):
+    """The scheduler's success-chance call: n (PET, PCT, deadline) from
+    normals, PETs clipped at time 1 as short tasks are."""
+    from repro_torch.core.pmf import PMF
+    rng = np.random.default_rng(seed)
+    specs = [(rng.uniform(4, 30), rng.uniform(1, 5), rng.uniform(5, 60),
+              rng.uniform(1, 8), int(rng.integers(-10, 15)))
+             for _ in range(n)]
+    pets = [PMF.from_normal(m, s) for m, s, _, _, _ in specs]
+    pcts = [PMF.from_normal(m, s) for _, _, m, s, _ in specs]
+    dls = [int(e.mean() + c.mean() + d)
+           for e, c, (_, _, _, _, d) in zip(pets, pcts, specs)]
+    return pets, pcts, dls
+
+
+def check_pmf_conv(n: int = 32, length: int = 64) -> dict:
+    """The kernel at (n, length) and (n, 2 length) against its plain version
+    (f32, atol 1e-6 / rtol 1e-5), and the front door ``batched_success`` at
+    (n, length) against ``chance_of_success`` (1e-5) less the one term its
+    single deadline index drops, ``pet[0] * pct(dl - pet_off)``."""
+    from repro_torch.core.pmf import chance_of_success
+    from repro_torch.kernels.pmf_conv.ops import batched_success, pmf_conv_cuda
+    from repro_torch.kernels.pmf_conv.ref import pmf_conv_ref
+    worst = 0.0
+    for ln in (length, 2 * length):
+        args = pmf_inputs(n, ln, SEED + 2)
+        out_k, suc_k = pmf_conv_cuda(*args)
+        out_r, suc_r = pmf_conv_ref(*args)
+        assert_close(f"pmf_conv ({n}, {ln}) out", out_k, out_r, 1e-6, 1e-5)
+        assert_close(f"pmf_conv ({n}, {ln}) success", suc_k, suc_r, 1e-6,
+                     1e-5)
+        worst = max(worst, max_err(out_k, out_r), max_err(suc_k, suc_r))
+    pets, pcts, dls = success_inputs(n, SEED + 7)
+    got = batched_success(pets, pcts, dls, length=length)
+
+    def at(pmf, t):
+        i = t - pmf.offset
+        return float(pmf.values[i]) if 0 <= i < len(pmf.values) else 0.0
+
+    want = np.array([chance_of_success(e, c, dl, droppable_prev=True)
+                     - e.values[0] * at(c, dl - e.offset)
+                     for e, c, dl in zip(pets, pcts, dls)])
+    if not np.allclose(got, want, atol=1e-5, rtol=0):
+        raise AssertionError(f"batched_success differs from "
+                             f"chance_of_success by "
+                             f"{np.abs(got - want).max()}")
+    wall = success_wall_ms(n, length)
+    pet_t, pct_t, dl_t = pmf_inputs(n, length, SEED + 2)
     # yardstick: the convolution alone as one grouped conv1d call
     torch.backends.cudnn.allow_tf32 = False
     w = torch.flip(pet_t, dims=[1])[:, None, :].contiguous()
     xin = pct_t[None]
-    nbytes = 4 * (pet.size + pct.size + n + n * lo + n)
+    lo = 2 * length - 1
+    nbytes = 4 * (2 * n * length + n + n * lo + n)
     b_ms, b_by = bound(nbytes, 2.0 * n * length * length)
     return {"name": "pmf_conv", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/pmf_conv.cu",
@@ -500,7 +612,32 @@ def check_pmf_conv(n: int = 32, length: int = 64) -> dict:
                       lambda: F.conv1d(xin, w, padding=length - 1, groups=n),
                       iters=20),
             "bound_ms": b_ms, "bound_by": b_by,
-            "shape": f"pet/pct ({n}, {length}) f32"}
+            "shape": f"pet/pct ({n}, {length}) f32; batched_success vs "
+                     f"chance_of_success max |err| "
+                     f"{np.abs(got - want).max():.3g}, wall a call "
+                     f"{wall:.5f} ms"}
+
+
+def success_wall_ms(n: int = 32, length: int = 64) -> float:
+    """Wall ms a call of ``batched_success`` at (n, length), the scheduler's
+    call: packing on the host, the copies and the kernel (each call waits
+    for its result)."""
+    from repro_torch.kernels.pmf_conv.ops import batched_success
+    pets, pcts, dls = success_inputs(n, SEED + 7)
+    return time_ms(lambda: batched_success(pets, pcts, dls, length=length),
+                   iters=200, warmup=10)
+
+
+def launch_floor() -> dict:
+    """The empty kernel of the library through the same ctypes route as
+    every kernel: device time a call and back-to-back wall a call, the floor
+    no launch-bound kernel can beat."""
+    from repro_torch.kernels.build import check, current_stream, library
+    lib, dev = library(), torch.device("cuda")
+
+    def floor():
+        check(lib.launch_floor(current_stream(dev)), "launch_floor")
+    return {"ms": device_ms(floor), "wall_ms": time_ms(floor, iters=200)}
 
 
 # ---------------------------------------------------------------------------
@@ -899,11 +1036,17 @@ def log_ptxas(text: str) -> None:
         entry = re.search(r"Compiling entry function '([^']+)", line)
         if entry:
             m = re.search(r"(paged_decode_kernel|decode_kernel|"
-                          r"pmf_conv_kernel)(I(?:Li\d+E)+E)?", entry.group(1))
+                          r"pmf_conv_kernel|rmsnorm_kernel|empty_kernel)"
+                          r"(I(?:13__nv_bfloat16|f)?(?:Li\d+E)+E)?",
+                          entry.group(1))
             name = m.group(1) if m else entry.group(1)
             if m and m.group(2):
-                name += "<" + ", ".join(re.findall(r"Li(\d+)E",
-                                                   m.group(2))) + ">"
+                args = re.findall(r"Li(\d+)E", m.group(2))
+                if "__nv_bfloat16" in m.group(2):
+                    args.insert(0, "bf16")
+                elif m.group(2).startswith("If"):
+                    args.insert(0, "f32")
+                name += "<" + ", ".join(args) + ">"
         elif "Used" in line:
             log(f"  ptxas: {name}: {line.split(':', 1)[1].strip()}")
         elif "spill" in line:
@@ -924,7 +1067,6 @@ def main() -> int:
     from repro_torch.bridge import init_params
     from repro_torch.configs.registry import get_arch
     from repro_torch.kernels.build import BUILD_DIR, library
-    from repro_torch.kernels.rmsnorm.ops import rmsnorm_triton
 
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -936,9 +1078,6 @@ def main() -> int:
 
     t0 = time.perf_counter()
     library()
-    x = torch.ones((1, 8), dtype=torch.bfloat16, device="cuda")
-    rmsnorm_triton(x, torch.ones((8,), dtype=torch.bfloat16, device="cuda"))
-    torch.cuda.synchronize()
     log(f"phase 1: kernels built in {time.perf_counter() - t0:.1f} s")
     log_ptxas((BUILD_DIR / "ptxas.log").read_text())
 
@@ -955,6 +1094,9 @@ def main() -> int:
             f"{r['library_ms']}; bound {r['bound_ms']:.6f} ms "
             f"({r['bound_by']}); back-to-back wall a call {r['wall']}; "
             f"max|err| {r['max_abs_err']:.3g}")
+    fl = launch_floor()
+    log(f"  launch floor (empty kernel, ctypes): device {fl['ms']:.5f} ms, "
+        f"back-to-back wall {fl['wall_ms']:.5f} ms a call")
 
     t0 = time.perf_counter()
     params = init_params(mc, torch.Generator(device="cuda").manual_seed(SEED),
@@ -1027,7 +1169,7 @@ def main() -> int:
     for r in rows:
         r["launches"] = res["counts"][r["name"]] + rr["counts"][r["name"]]
         r.pop("shape")
-        r.pop("wall")
+        r["wall_ms"] = r.pop("wall")["ms"]
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

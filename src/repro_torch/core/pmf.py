@@ -181,9 +181,9 @@ class PMF:
         bins inside [lo, hi]; everything below ``lo`` collapses onto ``lo``
         and everything at/above ``hi`` collapses onto ``hi``.
 
-        This is the dissertation's approximation to cut convolution cost; on
-        TPU it doubles as the length-normalizer feeding the fixed-shape
-        ``pmf_conv`` Pallas kernel.
+        This is the dissertation's approximation to cut convolution cost; it
+        doubles as the length-normalizer feeding the fixed-shape batched
+        ``pmf_conv`` kernel.
         """
         if bucket < 1:
             raise ValueError("bucket must be >= 1")

@@ -16,7 +16,7 @@ emits dropping decisions (applied to machine queues) and deferring decisions
 Overhead controls from §5.5 are first-class: ``compaction_bucket`` applies
 impulse compaction to every PET/PCT before convolving, and success chances
 use the memoized Procedure-2 algorithm instead of full convolutions.  The
-TPU-batched equivalent lives in ``repro.kernels.pmf_conv``.
+batched equivalent on the card lives in ``repro_torch.kernels.pmf_conv``.
 """
 
 from __future__ import annotations

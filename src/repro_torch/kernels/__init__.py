@@ -4,9 +4,11 @@
 |---|---|---|---|
 | decode attention | CUDA C++ | ``csrc/decode_attention.cu`` | ``decode_attention_pallas`` |
 | paged decode attention | CUDA C++ | ``csrc/paged_decode_attention.cu`` | ``paged_decode_attention_pallas`` |
-| RMSNorm | Triton | ``rmsnorm/rmsnorm.py`` | ``rmsnorm_pallas`` |
+| RMSNorm | CUDA C++ | ``csrc/rmsnorm.cu`` | ``rmsnorm_pallas`` |
 | PMF convolution | CUDA C++ | ``csrc/pmf_conv.cu`` | ``pmf_conv_pallas`` |
 
+All four build from ``csrc/`` into one library (``build.py``), which also
+holds ``launch_floor``, an empty kernel that times the floor of a launch.
 Every front door launches its kernel for a CUDA tensor and takes the plain
 version only for a tensor on the CPU.  Each kernel wrapper counts its own
 launches in a plain integer attribute, ``<wrapper>.launches``;
@@ -20,10 +22,10 @@ def _wrappers() -> dict:
     from .decode_attention.ops import (decode_attention_cuda,
                                        paged_decode_attention_cuda)
     from .pmf_conv.ops import pmf_conv_cuda
-    from .rmsnorm.ops import rmsnorm_triton
+    from .rmsnorm.ops import rmsnorm_cuda
     return {"decode_attention": decode_attention_cuda,
             "paged_decode_attention": paged_decode_attention_cuda,
-            "rmsnorm": rmsnorm_triton, "pmf_conv": pmf_conv_cuda}
+            "rmsnorm": rmsnorm_cuda, "pmf_conv": pmf_conv_cuda}
 
 
 def launch_counts() -> dict[str, int]:

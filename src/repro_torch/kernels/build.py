@@ -19,8 +19,11 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("decode_attention.cu", "paged_decode_attention.cu", "pmf_conv.cu")
+SOURCES = ("decode_attention.cu", "paged_decode_attention.cu", "pmf_conv.cu",
+           "rmsnorm.cu")
 #: headers the sources include; they enter the library's hash
 HEADERS = ("decode_attention.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_ext"
@@ -39,6 +42,10 @@ SIGNATURES = {
     "paged_decode_attention_bf16": [_P, _P, _P, _P, _P, _P,
                                     _I, _I, _I, _I, _I, _I, _F, _P],
     "pmf_conv_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "rmsnorm_bf16": [_P, _P, _P, _I, _I, _F, _P],
+    "rmsnorm_f32": [_P, _P, _P, _I, _I, _F, _P],
+    "rmsnorm_geometry": [_I, _I, _IP, _IP],
+    "launch_floor": [_P],
 }
 
 
@@ -105,6 +112,18 @@ def library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+def current_stream(device: torch.device) -> int:
+    """The handle of PyTorch's current stream on ``device``, which every
+    kernel launches on.  ``torch._C._cuda_getCurrentRawStream`` returns it
+    directly (PyTorch's own generated launchers call it);
+    ``torch.cuda.current_stream(device).cuda_stream`` builds a ``Stream``
+    object first, the largest part of a launch's host time (PERF.md §6)."""
+    index = device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def check(err: int, name: str) -> None:

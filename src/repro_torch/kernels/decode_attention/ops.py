@@ -20,7 +20,7 @@ import math
 
 import torch
 
-from ..build import check, library
+from ..build import check, current_stream, library
 from .ref import (SPLIT_GRANULE, SPLIT_RANKS, decode_attention_ref,
                   paged_decode_attention_ref)
 from ...obs.profiling import profiled
@@ -111,7 +111,7 @@ def decode_attention_cuda(q, k_cache, v_cache, lengths):
     err = _library().decode_attention_bf16(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         lengths.data_ptr(), out.data_ptr(), b, s, hkv, g, hd,
-        1.0 / math.sqrt(hd), torch.cuda.current_stream(q.device).cuda_stream)
+        1.0 / math.sqrt(hd), current_stream(q.device))
     decode_attention_cuda.launches += 1
     check(err, "decode_attention")
     return out
@@ -164,7 +164,7 @@ def paged_decode_attention_cuda(q, k_pages, v_pages, block_tables, lengths):
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
         b, hkv, g, hd, ps, block_tables.shape[1], 1.0 / math.sqrt(hd),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        current_stream(q.device))
     paged_decode_attention_cuda.launches += 1
     check(err, "paged_decode_attention")
     return out

@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..build import check, library
+from ..build import check, current_stream, library
 from .ref import pmf_conv_ref
 from ...device import resolve_device
 from ...obs.profiling import profiled
@@ -37,8 +37,7 @@ def pmf_conv_cuda(pet, pct, dl):
     suc = torch.empty((n,), dtype=torch.float32, device=pet.device)
     err = library().pmf_conv_f32(
         pet.data_ptr(), pct.data_ptr(), dl.data_ptr(), out.data_ptr(),
-        suc.data_ptr(), n, le, lc,
-        torch.cuda.current_stream(pet.device).cuda_stream)
+        suc.data_ptr(), n, le, lc, current_stream(pet.device))
     pmf_conv_cuda.launches += 1
     check(err, "pmf_conv")
     return out, suc
@@ -90,11 +89,16 @@ def batched_success(pets, pcts, deadlines, length: int = 128,
     hold it against ``core.pmf.chance_of_success``).
     """
     dev = resolve_device(device)
+    n = len(pets)
     pet_v, pet_o = pack_pmfs(pets, length)
     pct_v, pct_o = pack_pmfs(pcts, length)
     dl_idx = np.asarray(deadlines, np.int64) - pet_o - pct_o
-    dl_kernel = np.maximum(dl_idx, -1).astype(np.float32)
-    _, suc = pmf_conv(torch.from_numpy(pet_v).to(dev),
-                      torch.from_numpy(pct_v).to(dev),
-                      torch.from_numpy(dl_kernel).to(dev))
+    # pet, pct and the deadline indices as three segments of one buffer:
+    # one copy to the device, and only the success chances come back
+    host = np.concatenate([pet_v.ravel(), pct_v.ravel(),
+                           np.maximum(dl_idx, -1).astype(np.float32)])
+    buf = torch.from_numpy(host).to(dev)
+    cut = n * length
+    _, suc = pmf_conv(buf[:cut].view(n, length),
+                      buf[cut:2 * cut].view(n, length), buf[2 * cut:])
     return suc.cpu().numpy()

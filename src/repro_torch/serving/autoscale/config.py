@@ -39,7 +39,7 @@ class ElasticityConfig:
     high_chance: float = 0.9       # scale down when >= this (queue drained)
     signal_tasks: int = 32         # cap on batch tasks scored per decision
     signal_grid: int = 64          # PMF grid length for the batched kernel
-    use_kernel: bool = True        # pmf_conv Pallas kernel (interpret mode)
+    use_kernel: bool = True        # batched pmf_conv (the CUDA kernel on the card)
     # -- pressure-signal selection -------------------------------------------
     # what the probabilistic policies react to: "chance" (the Ch. 5
     # batched chance-of-success) or "osl" (Eq. 4.3 oversubscription level

@@ -14,8 +14,13 @@ that cross its granule and rank boundaries and at one shape for every
 rtol 4e-3: the kernels round their output to bf16); the engine's batched
 greedy tokens must equal its one-at-a-time tokens through the kernels, and
 the one-at-a-time path behind the Router keeps its tokens with the prefix
-cache on or off.
+cache on or off.  RMSNorm is held at every instantiation of its kernel
+(the library reports which one a width takes), the PMF convolution up to
+the longest row it takes, and its front door against the chance of success
+it stands for.
 """
+
+import ctypes
 
 import numpy as np
 import pytest
@@ -28,9 +33,11 @@ from repro_torch.kernels.decode_attention.ops import (
 from repro_torch.kernels.decode_attention.ref import (
     decode_attention_ref, decode_attention_split_ref,
     paged_decode_attention_ref, paged_decode_attention_split_ref)
-from repro_torch.kernels.pmf_conv.ops import pmf_conv_cuda
+from repro_torch.core.pmf import PMF, chance_of_success
+from repro_torch.kernels.pmf_conv.ops import batched_success, pmf_conv_cuda
 from repro_torch.kernels.pmf_conv.ref import pmf_conv_ref
-from repro_torch.kernels.rmsnorm.ops import rmsnorm_triton
+from repro_torch.kernels.build import library
+from repro_torch.kernels.rmsnorm.ops import MAX_D, check_width, rmsnorm_cuda
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
@@ -44,8 +51,7 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card: the CUDA/Triton kernels run only "
-                    "there")
+        pytest.skip("needs an NVIDIA card: the CUDA kernels run only there")
     return torch.device("cuda")
 
 
@@ -338,21 +344,183 @@ def test_rmsnorm_kernel(cuda, shape):
     g = torch.Generator(device=cuda).manual_seed(0)
     x = (3 * torch.randn(shape, generator=g, device=cuda)).bfloat16()
     s = torch.randn((shape[-1],), generator=g, device=cuda).bfloat16()
-    torch.testing.assert_close(rmsnorm_triton(x, s).float(),
+    torch.testing.assert_close(rmsnorm_cuda(x, s).float(),
                                rmsnorm_ref(x, s).float(), atol=2e-2,
                                rtol=2e-2)
 
 
-def test_pmf_conv_kernel(cuda):
+#: row widths that between them reach every instantiation of the kernel,
+#: in bf16 and in f32, from the smallest to smollm's 960 and the widest
+#: model's 7,168
+RMSNORM_D = (64, 256, 512, 960, 2048, 2560, 4096, 5120, 7168)
+#: bf16 holds the kernel to two bf16 roundings of the plain version: the
+#: f32 1 / rms differs in its last bits (another summation order), which
+#: can move x * r across a rounding point (one ulp of the cast) and, after
+#: the scale, the output by up to two ulps (2^-6 of a value; on the H100
+#: one output of the (64, 960) case differs by 0.0086 of its value).  That
+#: the kernel rounds x * r at all is held by
+#: ``test_rmsnorm_rounds_as_the_plain_version``
+RMSNORM_TOL = {torch.bfloat16: (1e-5, 1.6e-2), torch.float32: (1e-5, 1e-5)}
+#: the largest share of bf16 outputs that may differ from the plain
+#: version's bits, as ``chip_smoke.py`` holds it: a kernel that skips the
+#: cast of x * r changes about a quarter of them
+RMSNORM_DIFFER_MAX = 1e-3
+
+
+def _rms_geometry(d, dtype):
+    """(warps, vectors a lane) the library picks for rows of ``d``, or None
+    for a width it does not take."""
+    warps, vpl = ctypes.c_int(), ctypes.c_int()
+    err = library().rmsnorm_geometry(d, dtype.itemsize, ctypes.byref(warps),
+                                     ctypes.byref(vpl))
+    return None if err else (warps.value, vpl.value)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rmsnorm_every_width_has_an_instantiation(cuda, dtype):
+    """Every D the wrapper's checks take has an instantiation in the
+    library and every other D none, and ``RMSNORM_D`` reaches every
+    instantiation that any D reaches."""
+    per_vec = 16 // dtype.itemsize
+    picked = {}
+    for d in range(1, MAX_D + 2 * per_vec):
+        try:
+            check_width(d, dtype)
+            taken = True
+        except ValueError:
+            taken = False
+        g = _rms_geometry(d, dtype)
+        assert (g is not None) == taken, d
+        if taken:
+            picked[d] = g
+    assert set(picked.values()) == {picked[d] for d in RMSNORM_D}
+
+
+def _rms_inputs(cuda, rows, d, dtype, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = (3 * torch.randn((rows, d), generator=g, device=cuda)).to(dtype)
+    s = (1 + 0.1 * torch.randn((d,), generator=g, device=cuda)).to(dtype)
+    return x, s
+
+
+@pytest.mark.parametrize("rows", [1, 8, 64, 1000])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", RMSNORM_D)
+def test_rmsnorm_every_instantiation(cuda, d, dtype, rows):
+    x, s = _rms_inputs(cuda, rows, d, dtype, seed=d + rows)
+    got = rmsnorm_cuda(x, s)
+    assert got.dtype == dtype and got.shape == x.shape
+    atol, rtol = RMSNORM_TOL[dtype]
+    torch.testing.assert_close(got.float(), rmsnorm_ref(x, s).float(),
+                               atol=atol, rtol=rtol)
+    assert torch.equal(got, rmsnorm_cuda(x, s))
+
+
+def test_rmsnorm_rounds_as_the_plain_version(cuda):
+    """The cast order of ``layers.rmsnorm``: x * r rounded to bf16, then
+    times the scale.  Over 64 rows of every width, at most
+    ``RMSNORM_DIFFER_MAX`` of the outputs differ from the plain version's
+    bits."""
+    differ = total = 0
+    for d in RMSNORM_D:
+        x, s = _rms_inputs(cuda, 64, d, torch.bfloat16, seed=11 + d)
+        got, want = rmsnorm_cuda(x, s), rmsnorm_ref(x, s)
+        differ += int((got != want).sum())
+        total += got.numel()
+    assert differ <= RMSNORM_DIFFER_MAX * total, (differ, total)
+
+
+@pytest.mark.parametrize("d", [960, 7168])
+def test_rmsnorm_row_alone_equals_row_in_batch(cuda, d):
+    """A single-warp row (960) and an eight-warp row (7,168): each row
+    alone has the bits it has among 64."""
+    x, s = _rms_inputs(cuda, 64, d, torch.bfloat16, seed=3)
+    full = rmsnorm_cuda(x, s)
+    for i in range(64):
+        assert torch.equal(rmsnorm_cuda(x[i:i + 1], s)[0], full[i])
+
+
+def test_rmsnorm_refuses_what_it_does_not_take(cuda):
+    x, s = _rms_inputs(cuda, 4, 960, torch.bfloat16, seed=4)
+    for bad in ((x, s.float()), (x.half(), s.half()), (x.float(), s)):
+        with pytest.raises(ValueError):
+            rmsnorm_cuda(*bad)
+    flat = torch.zeros((2 * 960 + 8,), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        rmsnorm_cuda(flat[1:1 + 960].view(1, 960), s)
+    with pytest.raises(ValueError):
+        rmsnorm_cuda(x[:, :956].contiguous(), s[:956].contiguous())
+    with pytest.raises(ValueError):
+        rmsnorm_cuda(*_rms_inputs(cuda, 2, 7176, torch.bfloat16, seed=5))
+
+
+@pytest.mark.parametrize("n,le,lc", [(32, 64, 64), (32, 128, 128),
+                                     (3, 5, 64), (9, 64, 128)])
+def test_pmf_conv_kernel(cuda, n, le, lc):
     rng = np.random.default_rng(4)
-    pet = rng.random((32, 64)).astype(np.float32)
+    pet = rng.random((n, le)).astype(np.float32)
     pet /= pet.sum(axis=1, keepdims=True)
-    pct = rng.random((32, 64)).astype(np.float32)
+    pct = rng.random((n, lc)).astype(np.float32)
     pct /= pct.sum(axis=1, keepdims=True)
-    dl = rng.integers(-2, 130, 32).astype(np.float32)
+    dl = rng.integers(-2, le + lc + 2, n).astype(np.float32)
     args = [torch.from_numpy(a).to(cuda) for a in (pet, pct, dl)]
     for got, want in zip(pmf_conv_cuda(*args), pmf_conv_ref(*args)):
         torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-5)
+
+
+def test_pmf_conv_longest_row(cuda):
+    """The longest row the kernel takes, Le + Lc = 57,832 (one row a block
+    in 227 KB of shared memory, its header says why), against the plain
+    version; four more PCT values are refused with an error and leave
+    nothing behind for the next launch.  PET is a few spikes, so each
+    output is a short exact sum that shows any misplaced term."""
+    rng = np.random.default_rng(5)
+    le = lc = 28916
+    pet = np.zeros((1, le), np.float32)
+    pet[0, rng.integers(0, le, 6)] = rng.random(6)
+    pet[0, [0, le - 1]] = 0.5
+    pct = rng.random((1, lc)).astype(np.float32)
+    dl = np.array([lc // 3], np.float32)
+    args = [torch.from_numpy(a).to(cuda) for a in (pet, pct, dl)]
+    for got, want in zip(pmf_conv_cuda(*args), pmf_conv_ref(*args)):
+        torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-5)
+    longer = torch.from_numpy(rng.random((1, lc + 4)).astype(np.float32))
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        pmf_conv_cuda(args[0], longer.to(cuda), args[2])
+    small = [a[:, :64].contiguous() if a.dim() == 2 else a for a in args]
+    for got, want in zip(pmf_conv_cuda(*small), pmf_conv_ref(*small)):
+        torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-5)
+
+
+def test_batched_success_on_the_card(cuda):
+    """The front door on the card (one buffer up, the chances back) against
+    its plain version on the host and against ``chance_of_success`` less
+    the one term the front door's single deadline index drops,
+    ``pet[0] * pct(dl - pet_off)`` (``test_torch_kernels.py``,
+    ``test_packed_success_with_filler_rows``)."""
+    rng = np.random.default_rng(7)
+    specs = [(rng.uniform(4, 30), rng.uniform(1, 5), rng.uniform(5, 60),
+              rng.uniform(1, 8), int(rng.integers(-10, 15)))
+             for _ in range(32)]
+    pets = [PMF.from_normal(m, s) for m, s, _, _, _ in specs]
+    pcts = [PMF.from_normal(m, s) for _, _, m, s, _ in specs]
+    dls = [int(e.mean() + c.mean() + d)
+           for e, c, (_, _, _, _, d) in zip(pets, pcts, specs)]
+    reset_launch_counts()
+    got = batched_success(pets, pcts, dls, length=64)
+    assert launch_counts()["pmf_conv"] == 1
+    np.testing.assert_allclose(
+        got, batched_success(pets, pcts, dls, length=64, device="cpu"),
+        atol=1e-6)
+
+    def at(pmf, t):
+        i = t - pmf.offset
+        return float(pmf.values[i]) if 0 <= i < len(pmf.values) else 0.0
+
+    want = [chance_of_success(e, c, dl, droppable_prev=True)
+            - e.values[0] * at(c, dl - e.offset)
+            for e, c, dl in zip(pets, pcts, dls)]
+    np.testing.assert_allclose(got, want, atol=1e-5)
 
 
 def test_engine_batched_equals_one_at_a_time(cuda):

@@ -1,4 +1,4 @@
-"""The port stands alone: no JAX, nothing of ``repro``.
+"""The port stands alone: no JAX, nothing of ``repro``, and no Triton.
 
 A fresh interpreter with ``sys.modules["jax"] = None`` (so any ``import
 jax`` raises) imports every module of ``repro_torch`` and ``chip_smoke``,
@@ -70,3 +70,12 @@ def test_sources_never_import_repro_or_jax():
             assert not s.startswith(("import repro.", "from repro.",
                                      "import repro ", "from repro ")), \
                 f"{path.relative_to(ROOT)}: {s}"
+
+
+def test_sources_never_import_triton():
+    """Every kernel of the port is CUDA C++ built with nvcc: one build
+    route, which needs no Triton."""
+    for path in sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
+        assert "triton" not in [n.split(".")[0]
+                                for n in _imported_names(path)], \
+            f"{path.relative_to(ROOT)} imports triton"

@@ -33,6 +33,9 @@ from repro.kernels.pmf_conv.pmf_conv import pmf_conv_pallas
 from repro.kernels.pmf_conv.ref import pmf_conv_ref as jax_pmf_conv_ref
 from repro.kernels.rmsnorm.ref import rmsnorm_ref as jax_rmsnorm_ref
 from repro.kernels.rmsnorm.rmsnorm import rmsnorm_pallas
+from repro.configs.registry import ARCHS
+from repro.serving.autoscale.signals import \
+    _kernel_success as jax_kernel_success
 from repro_torch.bridge import to_tensor
 from repro_torch.core.pmf import PMF as TPMF
 from repro_torch.core.pmf import chance_of_success as t_chance_of_success
@@ -46,9 +49,13 @@ from repro_torch.kernels.decode_attention.ref import (
     decode_attention_ref, decode_attention_split_ref,
     paged_decode_attention_ref, paged_decode_attention_split_ref)
 from repro_torch.models import layers as L
-from repro_torch.kernels.pmf_conv.ops import (batched_success, pmf_conv,
-                                              pmf_conv_cuda)
-from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_triton
+from repro_torch.kernels.pmf_conv import ops as pmf_ops
+from repro_torch.kernels.pmf_conv.ops import (batched_success, pack_pmfs,
+                                              pmf_conv, pmf_conv_cuda)
+from repro_torch.kernels.rmsnorm import ops as rms_ops
+from repro_torch.kernels.rmsnorm.ops import (MAX_D, check_width, rmsnorm,
+                                             rmsnorm_cuda)
+from repro_torch.serving.autoscale.signals import _kernel_success
 
 
 def _np(t) -> np.ndarray:
@@ -115,6 +122,87 @@ class TestPmfConv:
         np.testing.assert_allclose(
             got, jax_batched_success(jpets, jpcts, dls, length=128),
             atol=1e-6)
+
+    @staticmethod
+    def _specs(n, seed):
+        rng = np.random.default_rng(seed)
+        specs = [(rng.uniform(4, 20), rng.uniform(1, 4), rng.uniform(5, 30),
+                  rng.uniform(1, 5), int(rng.integers(-10, 12)))
+                 for _ in range(n)]
+        dls = [int(em + cm + d) for em, _, cm, _, d in specs]
+        return specs, dls
+
+    def test_packed_success_with_filler_rows(self):
+        """The scheduler's call: 20 tasks on a 64-point grid padded to 32
+        rows with zero-success filler (``signals._kernel_success``), held
+        against the JAX package's padded kernel call and against
+        ``chance_of_success`` (the port's and the JAX package's); the filler
+        rows themselves come out 0.
+
+        Both packages' front doors fold the two PMF offsets into one
+        deadline index, so the PEND cut falls at ``dl - pet_off`` where
+        Procedure 2 cuts at ``dl``: a previous task freeing the machine at
+        exactly ``dl - pet_off`` is dropped, and the success misses
+        ``pet[0] * pct(dl - pet_off)``.  PETs clipped at time 1 put real
+        mass on ``pet[0]``, so here that term is held exactly."""
+        specs, dls = self._specs(20, seed=21)
+        pets = [TPMF.from_normal(m, s) for m, s, _, _, _ in specs]
+        pcts = [TPMF.from_normal(m, s) for _, _, m, s, _ in specs]
+        got = _kernel_success(pets, pcts, dls, 64, pad_to=32, device="cpu")
+        assert got.shape == (20,)
+        jpets = [PMF.from_normal(m, s) for m, s, _, _, _ in specs]
+        jpcts = [PMF.from_normal(m, s) for _, _, m, s, _ in specs]
+        np.testing.assert_allclose(
+            got, jax_kernel_success(jpets, jpcts, dls, 64, pad_to=32),
+            atol=1e-6)
+
+        def at(pmf, t):
+            i = t - pmf.offset
+            return float(pmf.values[i]) if 0 <= i < len(pmf.values) else 0.0
+
+        edge = np.array([e.values[0] * at(c, dl - e.offset)
+                         for e, c, dl in zip(pets, pcts, dls)])
+        assert edge.max() > 1e-3
+        for cos, pe, pc in ((t_chance_of_success, pets, pcts),
+                            (chance_of_success, jpets, jpcts)):
+            want = [cos(e, c, dl, droppable_prev=True)
+                    for e, c, dl in zip(pe, pc, dls)]
+            np.testing.assert_allclose(got, np.asarray(want) - edge,
+                                       atol=1e-5)
+        filler = [TPMF.impulse(0)] * 12
+        full = batched_success(pets + filler, pcts + filler, dls + [-1] * 12,
+                               length=64, device="cpu")
+        np.testing.assert_array_equal(full[20:], 0.0)
+        np.testing.assert_array_equal(full[:20], got)
+
+    def test_packed_inputs_are_one_buffer(self, monkeypatch):
+        """pet, pct and the deadline indices reach the kernel as three
+        contiguous views of one buffer (one copy to the device), in that
+        order, and give the bits of three separately built inputs."""
+        specs, dls = self._specs(7, seed=22)
+        pets = [TPMF.from_normal(m, s) for m, s, _, _, _ in specs]
+        pcts = [TPMF.from_normal(m, s) for _, _, m, s, _ in specs]
+        seen = []
+
+        def spy(pet, pct, dl):
+            seen.append((pet, pct, dl))
+            return pmf_conv(pet, pct, dl)
+
+        monkeypatch.setattr(pmf_ops, "pmf_conv", spy)
+        got = batched_success(pets, pcts, dls, length=64, device="cpu")
+        (pet, pct, dl), = seen
+        base = pet.untyped_storage().data_ptr()
+        assert pct.untyped_storage().data_ptr() == base
+        assert dl.untyped_storage().data_ptr() == base
+        assert (pet.storage_offset(), pct.storage_offset(),
+                dl.storage_offset()) == (0, 7 * 64, 2 * 7 * 64)
+        assert all(t.is_contiguous() for t in (pet, pct, dl))
+        pet_v, pet_o = pack_pmfs(pets, 64)
+        pct_v, pct_o = pack_pmfs(pcts, 64)
+        dl_k = np.maximum(np.asarray(dls) - pet_o - pct_o, -1)
+        _, want = pmf_conv(torch.from_numpy(pet_v), torch.from_numpy(pct_v),
+                           torch.from_numpy(dl_k.astype(np.float32)))
+        np.testing.assert_array_equal(got, want.numpy())
 
     def test_batched_success_defaults_to_cuda(self):
         if torch.cuda.is_available():
@@ -468,6 +556,82 @@ class TestRmsnorm:
         np.testing.assert_allclose(rms.numpy(), 1.0, atol=1e-3)
 
 
+#: every d_model in the JAX package's configs, full and reduced
+CONFIG_D = sorted({c.d_model for c in ARCHS.values()}
+                  | {c.reduced().d_model for c in ARCHS.values()})
+
+
+class TestRmsnormGeometry:
+    """The wrapper's checks; the kernel picks its instantiation from D and
+    the dtype (``geometry`` in ``csrc/rmsnorm.cu``), and the card tests hold
+    every width the checks take to an instantiation of the library."""
+
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+    def test_every_config_d_model_is_taken(self, dtype):
+        assert CONFIG_D[0] == 128 and CONFIG_D[-1] == MAX_D == 7168
+        for d in CONFIG_D:
+            check_width(d, dtype)
+
+    @pytest.mark.parametrize("d,dtype", [
+        (964, torch.bfloat16), (962, torch.float32), (0, torch.bfloat16),
+        (MAX_D + 8, torch.bfloat16), (960, torch.float16)])
+    def test_refuses_what_it_does_not_take(self, d, dtype):
+        with pytest.raises(ValueError):
+            check_width(d, dtype)
+
+    def test_chosen_from_d_and_dtype_alone(self, monkeypatch):
+        """The wrapper's launch for 1, 8, 64 and 1,000 rows differs in the
+        row count alone: nothing else it passes the kernel depends on the
+        batch."""
+        calls = []
+
+        class Lib:
+            @staticmethod
+            def rmsnorm_bf16(*args):
+                calls.append(args)
+                return 0
+
+        monkeypatch.setattr(rms_ops, "library", lambda: Lib)
+        monkeypatch.setattr(rms_ops, "current_stream", lambda dev: 7)
+        monkeypatch.setattr(torch, "empty_like",
+                            lambda t: _FakeCudaTensor(t.shape, t.dtype, 512))
+        scale = _FakeCudaTensor((960,), torch.bfloat16, 256)
+        before = rmsnorm_cuda.launches
+        for rows in (1, 8, 64, 1000):
+            rmsnorm_cuda(_FakeCudaTensor((rows, 960), torch.bfloat16, 1024),
+                         scale)
+        assert rmsnorm_cuda.launches == before + 4
+        assert [c[3] for c in calls] == [1, 8, 64, 1000]
+        assert {c[:3] + c[4:] for c in calls} == \
+            {(1024, 256, 512, 960, 1e-5, 7)}
+        with pytest.raises(ValueError, match="aligned"):
+            rmsnorm_cuda(_FakeCudaTensor((8, 960), torch.bfloat16, 1032),
+                         scale)
+        with pytest.raises(ValueError, match="one dtype"):
+            rmsnorm_cuda(_FakeCudaTensor((8, 960), torch.bfloat16, 1024),
+                         _FakeCudaTensor((960,), torch.float32, 256))
+        assert rmsnorm_cuda.launches == before + 4
+
+
+class _FakeCudaTensor:
+    """Stands in for a contiguous CUDA tensor at a given address: what the
+    RMSNorm wrapper reads before it launches."""
+    is_cuda = True
+    device = torch.device("cuda", 0)
+
+    def __init__(self, shape, dtype, ptr):
+        self.shape, self.dtype, self.ptr = torch.Size(shape), dtype, ptr
+
+    def is_contiguous(self):
+        return True
+
+    def data_ptr(self):
+        return self.ptr
+
+    def numel(self):
+        return self.shape.numel()
+
+
 # ---------------------------------------------------------------------------
 # the wrappers: plain version on the CPU, kernel or raise on the card
 # ---------------------------------------------------------------------------
@@ -488,7 +652,7 @@ class TestWrappers:
     @pytest.mark.parametrize("fn,args", [
         (paged_decode_attention_cuda,
          lambda: _t(*_paged_data(1, 2, 8, 4, 2, 16))),
-        (rmsnorm_triton, lambda: (torch.ones((2, 8)), torch.ones((8,)))),
+        (rmsnorm_cuda, lambda: (torch.ones((2, 8)), torch.ones((8,)))),
         (pmf_conv_cuda,
          lambda: tuple(map(torch.from_numpy, _pmf_data(2, 4, 4)))),
         (decode_attention_cuda,
