@@ -72,8 +72,27 @@ Phases (any failure exits non-zero and prints no result line):
    the greedy tokens equal those of the same trace with the prefix cache
    off.  A small input is checked against the plain versions on the CPU.
 5. The port's launcher, ``python -m repro_torch.launch.serve``, runs as a
-   subprocess on the card and must print a summary with completed > 0.
-6. Print tokens/s, decode-step walls, per-kernel launches and times, the
+   subprocess on the card with ``--record-out`` and must exit 0 and print
+   a summary with completed > 0.
+6. The record → fit → replay loop and the Ch. 3 predictor:
+   * the launcher's flight record is loaded (which validates it against
+     ``obs.schema``), fitted (``fit_oracle``) and replayed
+     (``drift_report``): the fitted table, decisions recorded and
+     replayed, completed recorded and replayed, and the per-stage drift
+     beside the reference's 15% bound (reported, not a check);
+   * the live calibration row: a full-width smollm-360m ``ServingEngine``
+     (one unit, EDF, no merging, pruning or caches, bucket 1: the
+     one-at-a-time path) with warmed units serves 24 recorded requests far
+     apart, with the counters zeroed just before and read just after; its
+     record is fitted and replayed the same way;
+   * the control replay: a stub-oracle engine recording replayed under its
+     own oracle must match every recorded decision, at 0.0 drift;
+   * the predictor at ``benchmarks/predictor.py``'s sizes: GBDT, Naive and
+     the MLP trained on the card; accuracies at tau 0.12 and the
+     benchmark's three checks (reported); the MLP trained on the card and
+     on the host from the same initial parameters must predict within
+     ``MLP_CARD_ATOL``; its fit wall on each.
+7. Print tokens/s, decode-step walls, per-kernel launches and times, the
    kernel JSON line (with each kernel's back-to-back wall a call,
    ``wall_ms``), and last the device JSON line.
 """
@@ -936,10 +955,12 @@ def serve_router(mc, params) -> dict:
 
 
 def run_launcher() -> dict:
-    """The port's launcher on the card, as a user runs it."""
+    """The port's launcher on the card, as a user runs it, recording its
+    run to ``LAUNCHER_RECORD``."""
+    LAUNCHER_RECORD.parent.mkdir(parents=True, exist_ok=True)
     cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--requests",
            "12", "--units", "1", "--merging", "adaptive", "--pruning",
-           "--rate", "0.5"]
+           "--rate", "0.5", "--record-out", str(LAUNCHER_RECORD)]
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     t0 = time.perf_counter()
     res = subprocess.run(cmd, capture_output=True, text=True, env=env,
@@ -954,6 +975,210 @@ def run_launcher() -> dict:
                              f" requests")
     return {"wall_s": wall, "completed": stats["completed"],
             "dropped": stats["dropped"], "n_requests": stats["n_requests"]}
+
+
+# ---------------------------------------------------------------------------
+# phase 6: record -> fit -> replay, and the Ch. 3 predictor
+# ---------------------------------------------------------------------------
+
+LAUNCHER_RECORD = ROOT / "build" / "calibration" / "launcher_record.json"
+#: the reference's bound on a fitted replay's per-stage drift
+#: (``benchmarks/serving.py`` calibration), printed beside each reading
+DRIFT_BOUND_PCT = 15.0
+#: the live row: 24 requests of 10-token prompts and 8 new tokens.  A
+#: decode step took 35-57 ms (3.5-5.7 ticks) on an NVIDIA H100 80GB HBM3 at
+#: 700 W (PERF.md section 5), so a span is about 30-50 ticks, far above the
+#: 1-tick floor below which a stage is not scored, with no need for the JAX
+#: row's 24-token decodes.  Gaps have a mean of 600 ticks, 12-20 spans, the
+#: JAX row's ratio (40-tick gaps, ~3-tick spans): queueing collisions stay
+#: rare, so the latency drift measures the oracle's fit and not collision
+#: luck.
+CAL_REQ, CAL_PLEN, CAL_NEW, CAL_GAP, CAL_DEADLINE = 24, 10, 8, 600.0, 5000.0
+#: the MLP trained on the card against the same training on the host, on
+#: its predictions: ``tests/test_torch_cuda.py``'s ``MLP_CARD_ATOL``
+MLP_CARD_ATOL = 1e-4
+
+
+def record_run(eng, trace) -> tuple[dict, dict]:
+    """Run ``eng`` over ``trace`` under a flight recorder with every side
+    channel filled (the launcher's ``--record-out`` wiring); returns the
+    record, JSON round-tripped, and the run's stats."""
+    from repro_torch.obs import FlightRecorder
+    rec = FlightRecorder(capacity=1 << 15)
+    for t, item in trace:
+        rec.note_arrival(t, item)
+    eng.attach_telemetry(rec)
+    stats = eng.run(trace)
+    rec.snapshot_estimator(0.0, eng.estimator)
+    rec.note_machines(eng.machines)
+    rec.note_engine_config(eng.cfg)
+    rec.note_stats(stats)
+    return json.loads(json.dumps(rec.to_artifact())), stats
+
+
+def fit_and_replay(record: dict) -> dict:
+    """Fit an oracle from a flight record and replay the record under it;
+    also the recorded exec spans, in the order they ended."""
+    from repro_torch.obs import (drift_report, fit_oracle,
+                                 validate_drift_report)
+    report = drift_report(record)
+    validate_drift_report(report)
+    open_at, spans = {}, []
+    for e in record["events"]:
+        key = (e.get("machine"), e.get("task"))
+        if e["kind"] == "exec_start":
+            open_at[key] = e["t"]
+        elif e["kind"] == "exec_end" and key in open_at:
+            spans.append(e["t"] - open_at.pop(key))
+    return {"table": fit_oracle(record).summary(), "report": report,
+            "spans": spans}
+
+
+def calibration_row(mc, params, dev) -> dict:
+    """The live engine on ``dev`` through the record -> fit -> replay loop
+    (``benchmarks/serving.py``'s live row at full width): one unit, EDF, no
+    merging, pruning or caches, bucket 1, units warmed at the prompt
+    length, ``CAL_REQ`` requests far apart."""
+    from repro_torch import kernels
+    from repro_torch.serving.engine import (EngineConfig, Request,
+                                            ServingEngine)
+    eng = ServingEngine(mc, params, EngineConfig(
+        n_units=1, elasticity=None, heuristic="EDF", merging="none",
+        pruning=None, result_cache=False, prefix_cache=False,
+        max_len=ROUTER_MAX_LEN, batch_buckets=(1,)), device=dev)
+    for u in eng.units:
+        u.warmup(prompt_len=CAL_PLEN, buckets=(1,))
+    rng = np.random.default_rng(SEED + 8)
+    prompts = [tuple(int(x) for x in rng.integers(1, mc.vocab, CAL_PLEN))
+               for _ in range(4)]
+    trace, t = [], 0.0
+    for _ in range(CAL_REQ):
+        trace.append((t, Request(prompt=prompts[int(rng.integers(0, 4))],
+                                 n_new=CAL_NEW, seed=int(rng.integers(0, 2)),
+                                 deadline=t + CAL_DEADLINE)))
+        t += float(rng.exponential(CAL_GAP))
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    record, stats = record_run(eng, trace)
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    if stats["completed"] != CAL_REQ:
+        raise AssertionError(f"the calibration row completed "
+                             f"{stats['completed']} of {CAL_REQ}")
+    return {**fit_and_replay(record), "counts": counts, "wall_s": wall}
+
+
+def control_replay() -> list[dict]:
+    """A stub-oracle engine recording replayed under its own oracle:
+    every recorded decision must come back, at 0.0 drift (trace
+    equivalence), for an adaptive-merging and a pruning configuration."""
+    from repro_torch.core.pruning import PruningConfig
+    from repro_torch.core.simulation import PETOracle
+    from repro_torch.core.tasks import PETMatrix
+    from repro_torch.obs import drift_report, validate_drift_report
+    from repro_torch.serving.engine import (EngineConfig, Request,
+                                            ServingEngine)
+
+    def oracle():
+        return PETOracle(PETMatrix.generate(
+            ["generate"], ["m0"], np.random.default_rng(3),
+            mean_range=(8, 16)), seed=11)
+    out = []
+    for name, kw in (
+            ("edf-adaptive", dict(heuristic="EDF", merging="adaptive")),
+            ("msd-pruned", dict(heuristic="MSD", merging="conservative",
+                                pruning=PruningConfig(
+                                    initial_defer_threshold=0.1,
+                                    base_drop_threshold=0.3,
+                                    dynamic_defer=True)))):
+        rng = np.random.default_rng(1)
+        prompts = [tuple(rng.integers(1, 1000, size=8).tolist())
+                   for _ in range(5)]
+        trace, t = [], 0.0
+        for _ in range(40):
+            trace.append((t, Request(
+                prompt=prompts[int(rng.integers(0, 5))], n_new=int(
+                    rng.integers(1, 4)), seed=int(rng.integers(0, 2)),
+                deadline=t + 20.0)))
+            t += float(rng.exponential(0.5))
+        eng = ServingEngine(None, None, EngineConfig(
+            n_units=1, elasticity=None, result_cache=False,
+            prefix_cache=False, **kw), stub_oracle=oracle(), device="cpu")
+        record, _ = record_run(eng, trace)
+        report = drift_report(record, oracle=oracle(), control=True)
+        validate_drift_report(report)
+        dec = report["decisions"]
+        if not (dec["match"] and dec["recorded"] == dec["replayed"] > 0
+                and report["max_stage_drift_pct"] == 0.0
+                and all(c["gap"] == 0 for c in report["counters"].values())):
+            raise AssertionError(f"control replay {name} does not match its "
+                                 f"recording: {json.dumps(report)}")
+        out.append({"name": name, "decisions": dec["recorded"],
+                    "completed": report["counters"]["completed"]["recorded"],
+                    "dropped": report["counters"]["dropped"]["recorded"]})
+    return out
+
+
+def predictor_phase(dev) -> dict:
+    """``benchmarks/predictor.py``'s Fig. 3.5 comparison with the MLP on
+    ``dev``, and the same MLP fit on the host: both start from the same
+    seeded initial parameters (drawn on the host), and their predictions
+    are held to ``MLP_CARD_ATOL``."""
+    from repro_torch.core.merge_model import VideoExecModel
+    from repro_torch.core.predictor import (GBDT, MLPPredictor,
+                                            NaivePredictor, accuracy)
+    model = VideoExecModel(seed=1)
+    X, y = model.make_dataset(5000, np.random.default_rng(0))
+    Xt, yt = model.make_dataset(1200, np.random.default_rng(99))
+    t0 = time.perf_counter()
+    gbdt = GBDT(n_estimators=80, max_depth=8, min_samples_split=30,
+                min_samples_leaf=2).fit(X, y)
+    gbdt_s = time.perf_counter() - t0
+    naive = NaivePredictor().fit(X, y)
+    mlps, walls = {}, {}
+    for d in (dev, "cpu"):
+        t0 = time.perf_counter()
+        mlps[d] = MLPPredictor(steps=500, device=d).fit(X, y)
+        if torch.device(d).type == "cuda":
+            torch.cuda.synchronize()
+        walls[d] = time.perf_counter() - t0
+    pred = mlps[dev].predict(Xt)
+    diff = float(np.abs(pred - mlps["cpu"].predict(Xt)).max())
+    if not diff <= MLP_CARD_ATOL:
+        raise AssertionError(f"the MLP trained on {dev} predicts {diff} away "
+                             f"from the same training on the host, above "
+                             f"{MLP_CARD_ATOL}")
+    acc = {"GBDT": accuracy(gbdt.predict(Xt), yt, 0.12),
+           "MLP": accuracy(pred, yt, 0.12),
+           "Naive": accuracy(naive.predict(Xt), yt, 0.12)}
+    checks = {"gbdt_beats_naive": acc["GBDT"] > acc["Naive"],
+              "gbdt_matches_or_beats_mlp": acc["GBDT"] >= acc["MLP"] - 0.5,
+              "gbdt_90plus": acc["GBDT"] >= 90.0}
+    return {"accuracy": acc, "checks": checks, "mlp_max_diff": diff,
+            "mlp_fit_s": walls, "gbdt_fit_s": gbdt_s}
+
+
+def log_calibration(what: str, res: dict) -> None:
+    rep = res["report"]
+    dec, cnt = rep["decisions"], rep["counters"]
+    log(f"  {what}: fitted table {res['table']}")
+    log(f"    decisions recorded {dec['recorded']}, replayed "
+        f"{dec['replayed']} (first divergence {dec['divergence_index']}); "
+        f"completed recorded {cnt['completed']['recorded']}, replayed "
+        f"{cnt['completed']['replayed']}; dropped recorded "
+        f"{cnt['dropped']['recorded']}, replayed {cnt['dropped']['replayed']}")
+    spans = res["spans"]
+    if spans:
+        log(f"    recorded exec spans: {len(spans)}, first {spans[0]:.3f}, "
+            f"min {min(spans):.3f} median {statistics.median(spans):.3f} "
+            f"max {max(spans):.3f} (exec #{spans.index(max(spans))}) ticks")
+    for name, row in rep["stages"].items():
+        log(f"    {name:8s} recorded {row['recorded_mean']:10.4f} replayed "
+            f"{row['replayed_mean']:10.4f} ticks, drift "
+            f"{row['drift_pct']:8.4f}%"
+            f"{'' if row['scored'] else ' (unscored)'}")
+    log(f"    max_stage_drift_pct {rep['max_stage_drift_pct']} (the "
+        f"reference's bound: {DRIFT_BOUND_PCT}%; reported, not checked)")
 
 
 def decode_step_profile(mc, params, n_steps: int = 10,
@@ -1134,8 +1359,39 @@ def main() -> int:
         f"{lr['wall_s']:.1f} s: completed {lr['completed']} of "
         f"{lr['n_requests']}, dropped {lr['dropped']}")
 
+    from repro_torch.obs import load_record
+    t0 = time.perf_counter()
+    log(f"phase 6: record -> fit -> replay ({smi})")
+    log_calibration("launcher record (--record-out, schema valid)",
+                    fit_and_replay(load_record(str(LAUNCHER_RECORD))))
+    cal = calibration_row(mc, params, "cuda")
+    for name in ROUTER_KERNELS:
+        if cal["counts"][name] == 0:
+            raise AssertionError(f"the calibration row never launched {name}")
+    log_calibration(f"live row, smollm-360m at full width, {CAL_REQ} "
+                    f"requests ({CAL_PLEN}-token prompts, {CAL_NEW} new "
+                    f"tokens, mean gap {CAL_GAP:g} ticks), served in "
+                    f"{cal['wall_s']:.1f} s", cal)
+    log(f"    main-path kernel launches: {cal['counts']}")
+    for c in control_replay():
+        log(f"  control replay {c['name']}: {c['decisions']} decisions "
+            f"matched exactly, 0.0 drift (completed {c['completed']}, "
+            f"dropped {c['dropped']})")
+    pr = predictor_phase("cuda")
+    log(f"  predictor (n_train 5000, n_test 1200): accuracy at tau 0.12 "
+        + ", ".join(f"{k} {v:.2f}%" for k, v in pr["accuracy"].items()))
+    log("    checks (reported): " + ", ".join(
+        f"{k} {'PASS' if v else 'FAIL'}" for k, v in pr["checks"].items()))
+    log(f"    MLP trained on the card vs on the host from the same initial "
+        f"parameters: max |prediction diff| {pr['mlp_max_diff']:.3g} (limit "
+        f"{MLP_CARD_ATOL})")
+    log(f"    MLP fit (500 steps) wall: card {pr['mlp_fit_s']['cuda']:.3f} s,"
+        f" host CPU {pr['mlp_fit_s']['cpu']:.3f} s; GBDT fit (host) "
+        f"{pr['gbdt_fit_s']:.2f} s")
+    log(f"  phase 6 took {time.perf_counter() - t0:.1f} s")
+
     st = res["stats"]
-    log(f"phase 6 ({smi}):")
+    log(f"phase 7 ({smi}):")
     log("  batched path:")
     log(f"  completed {res['completed']}, dropped {res['dropped']}, "
         f"batched == one at a time on {res['compared']} requests")
@@ -1167,7 +1423,8 @@ def main() -> int:
         f"{rr['decode_calls']}")
     log(f"  main-path kernel launches: {rr['counts']}")
     for r in rows:
-        r["launches"] = res["counts"][r["name"]] + rr["counts"][r["name"]]
+        r["launches"] = sum(c[r["name"]] for c in (
+            res["counts"], rr["counts"], cal["counts"]))
         r.pop("shape")
         r["wall_ms"] = r.pop("wall")["ms"]
     print(json.dumps({"kernels": rows}), flush=True)

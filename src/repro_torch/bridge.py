@@ -9,6 +9,9 @@ init_params`` builds (converted to numpy by the caller, e.g. with
 * bf16 crosses bit for bit (numpy holds it as ``ml_dtypes.bfloat16``,
   which is reinterpreted through its 16-bit pattern, never re-rounded).
 
+Any other dict of arrays crosses the same way, such as the merge-saving
+MLP's flat ``w1..b3`` (``repro.core.predictor.MLPPredictor``) in f32.
+
 ``init_params`` is the torch-native random init for the card (no JAX, no
 download), re-exported from ``models.transformer``.
 """

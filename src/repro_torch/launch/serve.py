@@ -49,8 +49,8 @@ rides under ``telemetry.slo``.
 (DESIGN.md §2.12): the bounded event ring, every arrival payload,
 periodic ``TimeEstimator`` EWMA snapshots and the kernel-profiler
 compile/execute split are serialized into one replayable artifact —
-``obs.fit.fit_oracle`` turns it into a measured oracle and
-``obs.replay.drift_report`` re-drives it through the simulator.
+the port's ``obs.fit.fit_oracle`` turns it into a measured oracle and
+its ``obs.replay.drift_report`` re-drives it through the simulator.
 """
 
 from __future__ import annotations
@@ -154,7 +154,9 @@ def main():
     ap.add_argument("--record-out", default=None,
                     help="write a replayable flight-record artifact here "
                          "(bounded event ring + arrivals + estimator "
-                         "snapshots + kernel profile; DESIGN.md §2.12)")
+                         "snapshots + kernel profile; DESIGN.md §2.12), "
+                         "for repro_torch.obs.fit_oracle and "
+                         "repro_torch.obs.drift_report")
     ap.add_argument("--record-capacity", type=int, default=65536,
                     help="flight-recorder ring size in events")
     ap.add_argument("--device", default="cuda",

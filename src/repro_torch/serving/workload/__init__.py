@@ -18,7 +18,7 @@ streaming ``submit/step/drain`` API instead of handing it a closed trace:
   interleaves generator arrivals with plane events on the virtual clock.
 
 A copy of ``repro.serving.workload`` for the port, unchanged but for this
-line; the trace generators (``generators``) are not copied.
+line.
 """
 
 from .arrivals import (ArrivalProcess, BurstyProcess, DiurnalProcess,

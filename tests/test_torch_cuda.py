@@ -17,7 +17,8 @@ the one-at-a-time path behind the Router keeps its tokens with the prefix
 cache on or off.  RMSNorm is held at every instantiation of its kernel
 (the library reports which one a width takes), the PMF convolution up to
 the longest row it takes, and its front door against the chance of success
-it stands for.
+it stands for.  The merge-saving MLP trained on the card predicts as the
+same training on the host does (``MLP_CARD_ATOL``).
 """
 
 import ctypes
@@ -545,3 +546,36 @@ def test_engine_batched_equals_one_at_a_time(cuda):
         assert counts["paged_decode_attention"] > 0 and counts["rmsnorm"] > 0
         tokens.append([r.tokens for r in reqs])
     assert tokens[0] == tokens[1]
+
+
+#: the merge-saving MLP trained on the card against the same training on
+#: the host, on its predictions (targets lie in [-0.1, 0.7]; the accuracy
+#: tolerance tau is 0.12): f32 on both with TF32 off, so only the order of
+#: the products' and gradients' sums differs.  The JAX and the port's CPU
+#: trainers, which differ the same way, agree to 4e-7 after 500 steps
+#: (``test_torch_predictor.py``); ``chip_smoke.py`` holds the benchmark's
+#: 500-step fit to the same limit.
+MLP_CARD_ATOL = 1e-4
+
+
+def test_mlp_trains_on_the_card_as_on_the_host(cuda):
+    """The same seeded initial parameters (drawn on the host) trained on
+    the card and on the host; ``predict`` hands numpy back on the host."""
+    from repro_torch.core.merge_model import VideoExecModel
+    from repro_torch.core.predictor import MLPPredictor
+    model = VideoExecModel(seed=1)
+    X, y = model.make_dataset(2000, np.random.default_rng(0))
+    Xt, _ = model.make_dataset(500, np.random.default_rng(99))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        card = MLPPredictor(steps=300).fit(X, y)         # CUDA by default
+        host = MLPPredictor(steps=300, device="cpu").fit(X, y)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert all(v.device.type == "cuda" and v.dtype == torch.float32
+               for v in card._params.values())
+    got = card.predict(Xt)
+    assert isinstance(got, np.ndarray) and got.shape == (len(Xt),)
+    np.testing.assert_allclose(got, host.predict(Xt), rtol=0,
+                               atol=MLP_CARD_ATOL)
