@@ -24,7 +24,10 @@ Phases (any failure exits non-zero and prints no result line):
      (``decode_attention_split_ref``: the same 16-key granules dealt to 8
      ranks, the same rank-order combine, on the inputs cast to f32) at
      lengths 0, 1, 15, 16, 17, 127, 128, 129 and 1024: atol 1e-4 / rtol
-     4e-3.  Two calls give the same bits;
+     4e-3.  Two calls give the same bits.  Then at every registered arch's
+     (G, Hkv, hd), B in {1, 8}: 38-50 keys of a 64-key cache, and the
+     enc-dec cross-attention over 8 frames of one, against both plain
+     versions and the split model, keys past the length never read;
    * paged decode attention, B in {1, 3, 8}, ragged lengths both at the
      38-47 keys the batched path serves and up to ``max_len``, a poisoned
      pad page 0.  Against the plain version on the bf16 inputs (scores in
@@ -41,15 +44,18 @@ Phases (any failure exits non-zero and prints no result line):
      keys); ``scaled_dot_product_attention`` over the same keys gathered
      into a contiguous cache is printed beside it, but is not the same
      function (no block table), so the row's ``library_ms`` stays null;
-   * RMSNorm on (8, 1, 960), (1, 1, 960) and (64, 960) bf16 and at one
-     shape for each instantiation of its kernel, bf16 and f32: against the
+   * RMSNorm on (8, 1, 960), (1, 1, 960) and (64, 960) bf16, on (1, 1, D),
+     (8, 1, D) and (1, 38, D) at every registered width D and the reduced
+     configs' 128, and at one shape for each instantiation of its kernel,
+     bf16 and f32: against the
      plain version at one bf16 ulp (atol 1e-5 / rtol 8e-3) or, in f32, at
      1e-5; at most 1e-3 of the bf16 outputs not bit-equal (the kernel
      rounds x * r to bf16 before the scale, as the plain version does;
      rounding once changes about a quarter of them); each row alone
      bit-equal to the same row in the batch, and two calls bit-equal;
    * the PMF convolution on (32, 64) and (32, 128), deadlines below, inside
-     and above the grid (f32, atol 1e-6 / rtol 1e-5), and its front door
+     and above the grid, the PEND cut at the success index and apart from
+     it (f32, atol 1e-6 / rtol 1e-5), and its front door
      ``batched_success`` at (32, 64) against ``chance_of_success`` (1e-5),
      with its wall a call;
    * the floor of a launch: the library's empty kernel through the same
@@ -71,15 +77,40 @@ Phases (any failure exits non-zero and prints no result line):
    kernel launches 32 times per decode step, the prefix cache hits, and
    the greedy tokens equal those of the same trace with the prefix cache
    off.  A small input is checked against the plain versions on the CPU.
-5. The port's launcher, ``python -m repro_torch.launch.serve``, runs as a
+5. Every model family (the smollm weights freed first, and re-made from
+   the same seed for phase 7):
+   * deepseek-moe-16b at full width (28 layers, 64 experts top-6 plus 2
+     shared, 16.4 B parameters, random init) behind the ``Router`` on two
+     planes sharing one copy of the weights, with phase 4's engine
+     settings, serves 8 requests of phase 4's traffic.  Every decode step
+     launches ``decode_attention`` 28 and ``rmsnorm`` 57 times; every
+     greedy request completes; every greedy request that ran alone
+     (bucket 1) gives the tokens of a direct ``prefill_fn`` +
+     ``decode_fn`` greedy run.  Median decode-step wall, peak
+     ``torch.cuda.max_memory_allocated`` and the launches are printed;
+   * every registered arch, one at a time on the card (full width, but
+     llava-next-34b at 30 of 60 layers and llama4-maverick at one dense +
+     MoE unit, printed as cut): a 38-token prompt (the embedding rows of
+     one for vlm; 8 encoder frames beside it for enc-dec), 8 greedy decode
+     steps with finite logits and the launches a step of its layers; its
+     weight bytes, the bytes a step reads and their bound at 3.35 TB/s,
+     the median step wall, the device's busy share of 10 steady steps
+     under the profiler, and its seconds;
+   * every reduced config on the card against the same weights on the CPU,
+     the CPU fed the card's greedy tokens over a prefill and 8 steps:
+     logits within the larger of 5e-2 and the CPU's own movement under one
+     bf16 ulp on the embedding table; the card's token the CPU's wherever
+     the CPU's top-2 margin exceeds twice that.
+6. The port's launcher, ``python -m repro_torch.launch.serve``, runs as a
    subprocess on the card with ``--record-out`` and must exit 0 and print
    a summary with completed > 0.
-6. The record → fit → replay loop and the Ch. 3 predictor:
+7. The record → fit → replay loop and the Ch. 3 predictor:
    * the launcher's flight record is loaded (which validates it against
      ``obs.schema``), fitted (``fit_oracle``) and replayed
      (``drift_report``): the fitted table, decisions recorded and
-     replayed, completed recorded and replayed, and the per-stage drift
-     beside the reference's 15% bound (reported, not a check);
+     replayed, completed recorded and replayed, the first recorded span
+     beside the median one, and the per-stage drift beside the
+     reference's 15% bound (reported, not a check);
    * the live calibration row: a full-width smollm-360m ``ServingEngine``
      (one unit, EDF, no merging, pruning or caches, bucket 1: the
      one-at-a-time path) with warmed units serves 24 recorded requests far
@@ -92,7 +123,7 @@ Phases (any failure exits non-zero and prints no result line):
      benchmark's three checks (reported); the MLP trained on the card and
      on the host from the same initial parameters must predict within
      ``MLP_CARD_ATOL``; its fit wall on each.
-7. Print tokens/s, decode-step walls, per-kernel launches and times, the
+8. Print tokens/s, decode-step walls, per-kernel launches and times, the
    kernel JSON line (with each kernel's back-to-back wall a call,
    ``wall_ms``), and last the device JSON line.
 """
@@ -100,6 +131,7 @@ Phases (any failure exits non-zero and prints no result line):
 from __future__ import annotations
 
 import ctypes
+import gc
 import json
 import os
 import re
@@ -154,16 +186,21 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA)
-    if us <= 0:
-        raise AssertionError("the profiler recorded no device time")
-    return us / 1e3 / iters
+    # a profiler session now and then records no device event at all
+    # (seen once in phase 2 on an H100); such a session is taken again
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us / 1e3 / iters
+        log(f"  (profiler session {attempt + 1} of {getattr(fn, '__name__', fn)}"
+            f" recorded no device time)")
+    raise AssertionError("the profiler recorded no device time")
 
 
 def timings(kern, plain, library=None, iters: int = 64) -> dict:
@@ -332,6 +369,74 @@ def check_decode_attention(mc, max_len: int) -> dict:
                      f"{long['wall']}"}
 
 
+def family_attention_shapes() -> list[tuple]:
+    """(arch, query rows a kv head, kv heads, head dim, cross) of every
+    attention a registered arch decodes with, and the enc-dec model's
+    cross-attention."""
+    from repro_torch.configs.registry import ARCHS
+    out = []
+    for name, cfg in ARCHS.items():
+        if cfg.family == "ssm":
+            continue
+        shape = (cfg.n_heads // cfg.n_kv_heads, cfg.n_kv_heads,
+                 cfg.resolved_head_dim)
+        out.append((name,) + shape + (False,))
+        if cfg.family == "encdec":
+            out.append((name,) + shape + (True,))
+    return out
+
+
+def check_family_attention(max_len: int) -> dict:
+    """The contiguous-cache kernel at every served (G, Hkv, hd), B in
+    {1, 8}: self-attention over 38-50 keys of a ``max_len`` cache, and the
+    enc-dec cross-attention over its ``ENC_FRAMES`` frames of a
+    ``max_len`` cache.  Against the plain version on the inputs cast to f32
+    (atol 1e-4 / rtol 4e-3), the layer's bf16 plain version (1e-2) and the
+    split model (1e-4 / 4e-3); keys past each row's length are never
+    read (set to +-99, the same bits)."""
+    from repro_torch.kernels.decode_attention.ops import decode_attention_cuda
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_ref, decode_attention_split_ref)
+    from repro_torch.models.layers import decode_attention_plain
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 13)
+    rng = np.random.default_rng(SEED + 13)
+    worst, worst_f32, names = 0.0, 0.0, []
+    for arch, group, hkv, hd, cross in family_attention_shapes():
+        for b in (1, 8):
+            shape = (b, max_len, hkv, hd)
+            k = torch.randn(shape, generator=g, device=dev).bfloat16()
+            v = torch.randn(shape, generator=g, device=dev).bfloat16()
+            q = torch.randn((b, group * hkv, hd), generator=g,
+                            device=dev).bfloat16()
+            lens = (np.full(b, ENC_FRAMES) if cross else
+                    rng.integers(SYS_LEN + SUFFIX_LEN, 51, size=b))
+            ln = torch.from_numpy(lens.astype(np.int32)).to(dev)
+            name = (f"decode_attention {arch} {'cross' if cross else 'self'}"
+                    f" G={group} Hkv={hkv} hd={hd} B={b} lens "
+                    f"{lens.tolist()}")
+            got = decode_attention_cuda(q, k, v, ln)
+            want32 = decode_attention_ref(q.float(), k.float(), v.float(), ln)
+            assert_close(f"{name} (f32 plain)", got, want32, 1e-4, 4e-3)
+            want = decode_attention_plain(q, k, v, ln)
+            assert_close(f"{name} (bf16 layer plain)", got, want, 1e-2, 1e-2)
+            worst = max(worst, max_err(got, want))
+            worst_f32 = max(worst_f32, max_err(got, want32),
+                            check_split(name, decode_attention_cuda,
+                                        decode_attention_split_ref,
+                                        (q, k, v, ln), lens.tolist()))
+            k2, v2 = k.clone(), v.clone()
+            for i, n in enumerate(lens.tolist()):
+                k2[i, n:], v2[i, n:] = 99.0, -99.0
+            if not torch.equal(decode_attention_cuda(q, k2, v2, ln), got):
+                raise AssertionError(f"{name}: keys past the length leak "
+                                     f"into the output")
+        names.append(f"{arch}{' cross' if cross else ''} "
+                     f"({group}, {hkv}, {hd})")
+    return {"max_abs_err": worst, "max_abs_err_f32": worst_f32,
+            "shapes": names}
+
+
 def check_paged_attention(mc, max_len: int, max_batch: int, ps: int) -> dict:
     from repro_torch.kernels.decode_attention.ops import \
         paged_decode_attention_cuda
@@ -491,9 +596,15 @@ def check_rmsnorm(mc, max_batch: int, budget: int) -> dict:
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    from repro_torch.configs.registry import ARCHS
     d = mc.d_model
     cases = [((max_batch, 1, d), torch.bfloat16), ((1, 1, d), torch.bfloat16),
              ((budget, d), torch.bfloat16)]
+    # every family's served rows: a decode step, a bucket of 8, a prompt,
+    # at each registered width and the reduced configs'
+    for w in sorted({c.d_model for c in ARCHS.values()} | {128}):
+        cases += [((1, 1, w), torch.bfloat16), ((8, 1, w), torch.bfloat16),
+                  ((1, SYS_LEN + SUFFIX_LEN, w), torch.bfloat16)]
     for dt in (torch.bfloat16, torch.float32):
         per_vec = 16 // dt.itemsize
         every = {rms_geometry(w, dt) for w in range(per_vec, MAX_D + 1,
@@ -584,30 +695,29 @@ def success_inputs(n: int, seed: int):
 
 def check_pmf_conv(n: int = 32, length: int = 64) -> dict:
     """The kernel at (n, length) and (n, 2 length) against its plain version
-    (f32, atol 1e-6 / rtol 1e-5), and the front door ``batched_success`` at
-    (n, length) against ``chance_of_success`` (1e-5) less the one term its
-    single deadline index drops, ``pet[0] * pct(dl - pet_off)``."""
+    (f32, atol 1e-6 / rtol 1e-5), with the PEND cut at the success index
+    and apart from it, and the front door ``batched_success`` at
+    (n, length) against ``chance_of_success`` (1e-5)."""
     from repro_torch.core.pmf import chance_of_success
     from repro_torch.kernels.pmf_conv.ops import batched_success, pmf_conv_cuda
     from repro_torch.kernels.pmf_conv.ref import pmf_conv_ref
     worst = 0.0
     for ln in (length, 2 * length):
-        args = pmf_inputs(n, ln, SEED + 2)
-        out_k, suc_k = pmf_conv_cuda(*args)
-        out_r, suc_r = pmf_conv_ref(*args)
-        assert_close(f"pmf_conv ({n}, {ln}) out", out_k, out_r, 1e-6, 1e-5)
-        assert_close(f"pmf_conv ({n}, {ln}) success", suc_k, suc_r, 1e-6,
-                     1e-5)
-        worst = max(worst, max_err(out_k, out_r), max_err(suc_k, suc_r))
+        pet, pct, dl = pmf_inputs(n, ln, SEED + 2)
+        # the cut one index past, at, and before the success index
+        cut = dl + torch.tensor([1.0, 0.0, -3.0], device=dl.device) \
+            .repeat(n // 3 + 1)[:n]
+        for args in ((pet, pct, dl), (pet, pct, dl, cut)):
+            out_k, suc_k = pmf_conv_cuda(*args)
+            out_r, suc_r = pmf_conv_ref(*args)
+            what = f"pmf_conv ({n}, {ln}){' cut' if len(args) > 3 else ''}"
+            assert_close(f"{what} out", out_k, out_r, 1e-6, 1e-5)
+            assert_close(f"{what} success", suc_k, suc_r, 1e-6, 1e-5)
+            worst = max(worst, max_err(out_k, out_r), max_err(suc_k, suc_r))
     pets, pcts, dls = success_inputs(n, SEED + 7)
     got = batched_success(pets, pcts, dls, length=length)
 
-    def at(pmf, t):
-        i = t - pmf.offset
-        return float(pmf.values[i]) if 0 <= i < len(pmf.values) else 0.0
-
     want = np.array([chance_of_success(e, c, dl, droppable_prev=True)
-                     - e.values[0] * at(c, dl - e.offset)
                      for e, c, dl in zip(pets, pcts, dls)])
     if not np.allclose(got, want, atol=1e-5, rtol=0):
         raise AssertionError(f"batched_success differs from "
@@ -833,7 +943,7 @@ def check_small_input(mc, params, n_steps: int = 4, paged: bool = True):
 # phase 4: the one-at-a-time path behind the front door
 # ---------------------------------------------------------------------------
 
-def make_router_trace(vocab: int):
+def make_router_trace(vocab: int, n_req: int = ROUTER_REQ):
     """``examples/serve_smse.py``'s traffic: 4 shared 32-token system
     prompts + 6-token suffixes, 4 new tokens, temperatures from
     {0, 0, 0.7}, exponential gaps of mean 5 ticks (deadlines wider than
@@ -843,7 +953,7 @@ def make_router_trace(vocab: int):
     systems = [tuple(int(x) for x in rng.integers(1, vocab, SYS_LEN))
                for _ in range(N_SYS)]
     trace, t = [], 0.0
-    for _ in range(ROUTER_REQ):
+    for _ in range(n_req):
         prompt = systems[int(rng.integers(0, N_SYS))] + \
             tuple(int(x) for x in rng.integers(1, vocab, SUFFIX_LEN))
         trace.append((t, Request(
@@ -860,11 +970,8 @@ def serve_router(mc, params) -> dict:
     ``ProcessingUnit.execute`` and ``decode_fn``), prefix cache on, then
     the same trace with it off."""
     from repro_torch import kernels
-    from repro_torch.core.pruning import PruningConfig
     from repro_torch.models import transformer as T
-    from repro_torch.serving.autoscale import ElasticityConfig
     from repro_torch.serving.cluster import Router, make_engine_planes
-    from repro_torch.serving.engine import EngineConfig
 
     # count (and time) every decode_fn call: the units build their decode
     # step from T.decode_fn when the planes are made
@@ -887,14 +994,8 @@ def serve_router(mc, params) -> dict:
     T.decode_fn = counted_decode_fn
     try:
         for prefix_cache in (True, False):
-            ecfg = EngineConfig(
-                n_units=2, elasticity=ElasticityConfig(max_extra=2,
-                                                       cooldown=100.0),
-                heuristic="EDF", merging="adaptive",
-                pruning=PruningConfig(initial_defer_threshold=0.1,
-                                      base_drop_threshold=0.05),
-                max_len=ROUTER_MAX_LEN, batch_buckets=(1, 2, 4, 8),
-                prefix_cache=prefix_cache)
+            ecfg = router_engine_config()
+            ecfg.prefix_cache = prefix_cache
             router = Router(make_engine_planes(mc, params, ecfg, 2,
                                                device="cuda"),
                             policy="affinity")
@@ -954,6 +1055,374 @@ def serve_router(mc, params) -> dict:
             "affinity_hits": st["router"]["affinity_hits"]}
 
 
+def router_engine_config():
+    """Phase 4's engine settings: serve_smse's, with no step batching."""
+    from repro_torch.core.pruning import PruningConfig
+    from repro_torch.serving.autoscale import ElasticityConfig
+    from repro_torch.serving.engine import EngineConfig
+    return EngineConfig(
+        n_units=2, elasticity=ElasticityConfig(max_extra=2, cooldown=100.0),
+        heuristic="EDF", merging="adaptive",
+        pruning=PruningConfig(initial_defer_threshold=0.1,
+                              base_drop_threshold=0.05),
+        max_len=ROUTER_MAX_LEN, batch_buckets=(1, 2, 4, 8))
+
+
+# ---------------------------------------------------------------------------
+# phase 5: every model family; deepseek-moe-16b served at full width
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "deepseek-moe-16b"
+FAMILY_REQ = 8
+#: the arch table: a 38-token prompt, then greedy decode steps in a cache
+#: of ROUTER_MAX_LEN; steady steps under the profiler for the busy share
+ARCH_STEPS, PROFILE_STEPS, ENC_FRAMES = 8, 10, 8
+#: layers kept where the whole model does not fit beside the phase's state
+#: (llava-next-34b: 30 of 60, about 36 GB; llama4: one dense + MoE unit,
+#: about 37 GB)
+CUT_DEPTH = {"llava-next-34b": 30, "llama4-maverick-400b-a17b": 2}
+#: card against CPU on the reduced configs: logits within the larger of
+#: this and the CPU's own movement under one bf16 ulp on the embedding
+#: table (tests/test_torch_families.py's rule, which zamba2 and seamless
+#: need there too)
+CARD_LOGIT_TOL = 5e-2
+
+
+def expected_launches(cfg) -> tuple[int, int]:
+    """(decode_attention, rmsnorm) launches of one decode step: a
+    self-attention per attention layer (and a cross-attention per enc-dec
+    decoder layer), two norms per block (three in an enc-dec decoder block,
+    one per Mamba2 block) and the final norm."""
+    n = cfg.n_layers
+    if cfg.family == "hybrid":
+        groups = n // cfg.ssm.attn_period
+        return groups, n + 2 * groups + 1
+    if cfg.family == "ssm":
+        return 0, n + 1
+    if cfg.family == "encdec":
+        return 2 * n, 3 * n + 1
+    return n, 2 * n + 1
+
+
+def nbytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in _leaves(tree))
+
+
+def decode_weight_bytes(cfg, params) -> int:
+    """Weight bytes one B=1 decode step reads: everything but the embedding
+    table (one row) and the encoder; the hybrid's shared block once per
+    group; every expert of a MoE layer (the dispatch einsum reads them
+    all)."""
+    total = nbytes(params) - nbytes(params["embed"])
+    if cfg.family == "encdec":
+        total -= nbytes(params["encoder"])
+    if cfg.family == "hybrid":
+        total += (cfg.n_layers // cfg.ssm.attn_period - 1) * \
+            nbytes(params["shared_attn"])
+    return total
+
+
+def family_inputs(cfg, params, prompt, dev):
+    """A prefill batch for ``cfg``: tokens, the embedding rows of the
+    prompt in their place for vlm, and ``ENC_FRAMES`` unit-normal frames
+    beside them for enc-dec."""
+    from repro_torch.models import layers as L
+    toks = torch.as_tensor(np.asarray(prompt, np.int64), device=dev)[None]
+    if cfg.family == "encdec":
+        g = torch.Generator(device=dev).manual_seed(SEED + 9)
+        enc = torch.randn((1, ENC_FRAMES, cfg.d_model), generator=g,
+                          device=dev).to(torch.bfloat16)
+        return {"tokens": toks, "enc_embeds": enc}
+    if not cfg.embed_inputs:
+        return {"embeds": L.embed(params["embed"], toks)}
+    return {"tokens": toks}
+
+
+def greedy_run(cfg, params, batch, n_steps, feed=None):
+    """Prefill then ``n_steps`` decode steps, greedy (or fed ``feed``):
+    the logits of each and per step its wall and kernel launches."""
+    from repro_torch import kernels
+    from repro_torch.models import transformer as T
+    logits, cache = T.prefill_fn(cfg)(params, batch, ROUTER_MAX_LEN)
+    dec = T.decode_fn(cfg)
+    out, walls, launches, fed = [logits], [], [], []
+    for i in range(n_steps):
+        cur = logits.argmax(-1) if feed is None else feed[i]
+        fed.append(cur)
+        if logits.is_cuda:
+            torch.cuda.synchronize()
+        before = kernels.launch_counts()
+        t0 = time.perf_counter()
+        logits, cache = dec(params, cache, cur.to(logits.device))
+        if logits.is_cuda:
+            torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        after = kernels.launch_counts()
+        launches.append({k: after[k] - before[k] for k in after})
+        out.append(logits)
+    return {"logits": out, "walls": walls, "launches": launches,
+            "fed": fed}
+
+
+def serve_moe_router(mc, params) -> dict:
+    """deepseek-moe-16b at full width behind the port's Router: two planes
+    over one copy of the weights with phase 4's engine settings, serving
+    ``FAMILY_REQ`` requests of serve_smse's traffic.  Every decode step's
+    launches and wall are recorded (warm-ups aside), and every greedy
+    request that ran alone (bucket 1) is replayed as a direct
+    ``prefill_fn`` + ``decode_fn`` greedy run at the same shapes."""
+    from repro_torch import kernels
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.cluster import Router, make_engine_planes
+    from repro_torch.serving.engine import ProcessingUnit
+
+    steps, alone, warming = [], [], [False]
+    decode_fn, execute, warmup = (T.decode_fn, ProcessingUnit.execute,
+                                  ProcessingUnit.warmup)
+
+    def counted_decode_fn(cfg):
+        step = decode_fn(cfg)
+
+        def f(p, cache, tokens):
+            before = kernels.launch_counts()
+            t0 = time.perf_counter()
+            out = step(p, cache, tokens)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if not warming[0]:
+                after = kernels.launch_counts()
+                steps.append((wall, {k: after[k] - before[k]
+                                     for k in after}))
+            return out
+        return f
+
+    def recorded_execute(self, task, requests, rng, **kw):
+        out = execute(self, task, requests, rng, **kw)
+        if not warming[0] and len(requests) == 1:
+            alone.append(requests[0])
+        return out
+
+    def flagged_warmup(self, *a, **kw):
+        warming[0] = True
+        try:
+            return warmup(self, *a, **kw)
+        finally:
+            warming[0] = False
+
+    T.decode_fn, ProcessingUnit.execute, ProcessingUnit.warmup = (
+        counted_decode_fn, recorded_execute, flagged_warmup)
+    try:
+        router = Router(make_engine_planes(mc, params, router_engine_config(),
+                                           2, device="cuda"),
+                        policy="affinity")
+        trace = make_router_trace(mc.vocab, FAMILY_REQ)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        steps.clear()
+        t0 = time.perf_counter()
+        stats = router.run(trace)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+    finally:
+        T.decode_fn, ProcessingUnit.execute, ProcessingUnit.warmup = (
+            decode_fn, execute, warmup)
+    for name in ROUTER_KERNELS:
+        if counts[name] == 0:
+            raise AssertionError(f"the {MOE_ARCH} path never launched {name}")
+    want = dict(zip(ROUTER_KERNELS, expected_launches(mc)))
+    for wall_s, c in steps:
+        if any(c[k] != want[k] for k in want):
+            raise AssertionError(f"a {MOE_ARCH} decode step launched {c}, "
+                                 f"want {want}")
+    reqs = [r for _, r in trace]
+    greedy = [r for r in reqs if r.temperature == 0.0]
+    for r in greedy:
+        if r.status != "done" or len(r.tokens) != ROUTER_NEW:
+            raise AssertionError(f"greedy request {r.rid} ended as "
+                                 f"{r.status} with {len(r.tokens)} tokens")
+    compared = 0
+    for r in alone:
+        if r.temperature != 0.0:
+            continue
+        batch = {"tokens": torch.tensor([r.prompt], device="cuda")}
+        run = greedy_run(mc, params, batch, ROUTER_NEW - 1)
+        direct = [int(lg.argmax(-1)[0]) for lg in run["logits"]]
+        if direct != r.tokens:
+            raise AssertionError(f"request {r.rid} served alone gave "
+                                 f"{r.tokens}, a direct run {direct}")
+        compared += 1
+    if compared == 0:
+        raise AssertionError(f"no greedy {MOE_ARCH} request ran alone")
+    done = [r for r in reqs if r.status == "done"]
+    n_tok = sum(len(r.tokens) for r in done)
+    return {"counts": counts, "stats": stats, "wall_s": wall,
+            "decode_steps": len(steps),
+            "median_decode_step_ms":
+                1e3 * statistics.median(w for w, _ in steps),
+            "per_step": want, "compared": compared, "alone": len(alone),
+            "completed": len(done), "tokens": n_tok,
+            "tokens_per_s": n_tok / wall, "greedy": len(greedy)}
+
+
+def arch_row(name, cfg, params, cut: str) -> dict:
+    """One row of the arch table: a 38-token prompt and ``ARCH_STEPS``
+    greedy decode steps (finite logits, launches a step as
+    ``expected_launches``), the median step wall, and the device's busy
+    share of steady steps under the profiler."""
+    rng = np.random.default_rng(SEED + 10)
+    prompt = rng.integers(1, cfg.vocab, SYS_LEN + SUFFIX_LEN)
+    run = greedy_run(cfg, params, family_inputs(cfg, params, prompt, "cuda"),
+                     ARCH_STEPS)
+    for lg in run["logits"]:
+        if lg.shape != (1, cfg.vocab) or not torch.isfinite(lg).all():
+            raise AssertionError(f"{name}: logits not finite or misshaped")
+    want = dict(zip(ROUTER_KERNELS, expected_launches(cfg)))
+    for c in run["launches"]:
+        if any(c[k] != want[k] for k in want):
+            raise AssertionError(f"{name}: a decode step launched {c}, "
+                                 f"want {want}")
+    prof = decode_step_profile(cfg, params, n_steps=PROFILE_STEPS,
+                               paged=False)
+    wb = decode_weight_bytes(cfg, params)
+    return {"arch": name, "family": cfg.family, "cut": cut,
+            "weight_bytes": nbytes(params), "read_bytes": wb,
+            "bound_ms": wb / HBM_BYTES_PER_S * 1e3,
+            "step_ms": 1e3 * statistics.median(run["walls"]),
+            "profile": prof, "per_step": want}
+
+
+def card_vs_cpu(name) -> dict:
+    """The reduced config with the same weights on the card and on the CPU
+    (the kernels' plain versions): prefill and ``ARCH_STEPS`` greedy decode
+    steps on the card, the CPU fed the card's tokens.  Logits within the
+    larger of ``CARD_LOGIT_TOL`` and the CPU's own movement under one bf16
+    ulp on the embedding table (atol and rtol); the card's greedy token is
+    the CPU's wherever the CPU's top-2 margin exceeds twice that, and
+    scores within twice that of the CPU's best where it does not."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import transformer as T
+    cfg = get_arch(name).reduced()
+    cpu = T.init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
+    emb = cpu["embed"]["emb"]
+    sign = torch.where(torch.rand(emb.shape, generator=torch.Generator()
+                                  .manual_seed(SEED + 11)) < 0.5, -1.0, 1.0)
+    moved = dict(cpu, embed={"emb": (emb.float() * (1 + sign * 2.0 ** -8))
+                             .to(emb.dtype)})
+    prompt = np.random.default_rng(SEED + 12).integers(
+        1, cfg.vocab, SYS_LEN + SUFFIX_LEN)
+    batch = family_inputs(cfg, cpu, prompt, "cpu")
+    card = greedy_run(cfg, _tree_to(cpu, "cuda"), _tree_to(batch, "cuda"),
+                      ARCH_STEPS)
+    fed = [t.cpu() for t in card["fed"]]
+    host = greedy_run(cfg, cpu, batch, ARCH_STEPS, feed=fed)
+    ref = greedy_run(cfg, moved, family_inputs(cfg, moved, prompt, "cpu")
+                     if not cfg.embed_inputs else batch, ARCH_STEPS,
+                     feed=fed)
+    worst, equal, tols = 0.0, 0, []
+    for lc, lh, lr in zip(card["logits"], host["logits"], ref["logits"]):
+        lc, lh, lr = lc.float().cpu(), lh.float(), lr.float()
+        if not torch.isfinite(lc).all():
+            raise AssertionError(f"{name}: card logits are not finite")
+        tol = max(CARD_LOGIT_TOL, float((lr - lh).abs().max()))
+        tols.append(tol)
+        if not torch.allclose(lc, lh, atol=tol, rtol=tol):
+            raise AssertionError(f"{name}: card and CPU logits differ by "
+                                 f"{float((lc - lh).abs().max())}, beyond "
+                                 f"{tol}")
+        worst = max(worst, float((lc - lh).abs().max()))
+        pick, want = int(lc.argmax()), int(lh.argmax())
+        top2 = torch.topk(lh[0], 2).values
+        if pick != want and (float(top2[0] - top2[1]) > 2 * tol
+                             or float(lh[0, want] - lh[0, pick]) > 2 * tol):
+            raise AssertionError(f"{name}: card picked {pick}, CPU {want} "
+                                 f"(top-2 margin {float(top2[0] - top2[1])})")
+        equal += pick == want
+    return {"arch": name, "family": cfg.family, "max_abs_err": worst,
+            "tol": max(tols), "equal": equal, "tokens": len(tols)}
+
+
+def family_phase(smi: str) -> dict:
+    """Phase 5: deepseek-moe-16b behind the Router at full width, the arch
+    table, and every reduced config on the card against the CPU."""
+    from repro_torch.bridge import init_params
+    from repro_torch.configs.registry import ARCHS
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mc = ARCHS[MOE_ARCH]
+    params = init_params(mc, torch.Generator(device="cuda").manual_seed(SEED),
+                         "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    log(f"phase 5: every family ({smi})")
+    log(f"  {MOE_ARCH} at full width: {nbytes(params) / 1e9:.3f} GB of bf16 "
+        f"weights ({sum(t.numel() for t in _leaves(params)) / 1e9:.3f} B "
+        f"parameters), random init in {init_s:.1f} s")
+    t0 = time.perf_counter()
+    moe = serve_moe_router(mc, params)
+    peak = torch.cuda.max_memory_allocated()
+    st = moe["stats"]
+    log(f"  Router, 2 planes on one copy of the weights, phase 4's engine "
+        f"settings: {FAMILY_REQ} requests in {moe['wall_s']:.2f} s "
+        f"(phase part {time.perf_counter() - t0:.1f} s with set-up)")
+    log(f"    completed {moe['completed']}, dropped {st['dropped']}, merges "
+        f"{st['merges']}, scale-ups {st['scale_ups']}; tokens/s "
+        f"{moe['tokens_per_s']:.2f}; {moe['compared']} greedy requests "
+        f"served alone equal a direct prefill_fn + decode_fn run")
+    log(f"    median decode step {moe['median_decode_step_ms']:.3f} ms over "
+        f"{moe['decode_steps']} steps; launches a step: decode_attention "
+        f"{moe['per_step']['decode_attention']}, rmsnorm "
+        f"{moe['per_step']['rmsnorm']}")
+    log(f"    torch.cuda.max_memory_allocated {peak / 2 ** 30:.3f} GiB")
+    log(f"    main-path kernel launches: {moe['counts']}")
+    rows = [arch_row(MOE_ARCH, mc, params, "full width")]
+    log_profile(rows[0]["profile"], f"{MOE_ARCH} decode step (B=1, "
+                f"contiguous cache)", mc.n_layers)
+    del params
+    torch.cuda.empty_cache()
+
+    for name, cfg in ARCHS.items():
+        if name == MOE_ARCH:
+            continue
+        t0 = time.perf_counter()
+        cut = "full width"
+        if name in CUT_DEPTH:
+            cut = f"cut depth: {CUT_DEPTH[name]} of {cfg.n_layers} layers"
+            cfg = cfg.scaled(n_layers=CUT_DEPTH[name])
+        params = init_params(cfg, torch.Generator(device="cuda")
+                             .manual_seed(SEED), "cuda")
+        row = arch_row(name, cfg, params, cut)
+        row["seconds"] = time.perf_counter() - t0
+        rows.append(row)
+        del params
+        torch.cuda.empty_cache()
+    log(f"  every registered arch: a {SYS_LEN + SUFFIX_LEN}-token prompt, "
+        f"{ARCH_STEPS} greedy decode steps (finite logits), B=1, a "
+        f"{ROUTER_MAX_LEN}-position cache; bound = weight bytes a step "
+        f"reads / {HBM_BYTES_PER_S / 1e12:.2f} TB/s")
+    for r in rows:
+        p = r["profile"]
+        busy = ("not measured" if p["busy_ms"] is None else
+                f"{p['busy_ms']:.3f} ms busy of {p['wall_ms']:.3f} ms "
+                f"({p['busy_ms'] / p['wall_ms']:.3f})")
+        log(f"    {r['arch']:26s} {r['family']:6s} {r['cut']}: weights "
+            f"{r['weight_bytes'] / 1e9:.3f} GB, a step reads "
+            f"{r['read_bytes'] / 1e9:.3f} GB, bound {r['bound_ms']:.3f} ms; "
+            f"step wall {r['step_ms']:.3f} ms (median of {ARCH_STEPS}); "
+            f"device {busy}; launches a step {r['per_step']}"
+            + (f"; {r['seconds']:.1f} s" if "seconds" in r else ""))
+    t0 = time.perf_counter()
+    pairs = [card_vs_cpu(name) for name in ARCHS]
+    log(f"  card vs CPU on every reduced config ({time.perf_counter() - t0:.1f}"
+        f" s): prefill + {ARCH_STEPS} greedy decode steps, the CPU fed the "
+        f"card's tokens")
+    for c in pairs:
+        log(f"    {c['arch']:26s} {c['family']:6s} max |logit err| "
+            f"{c['max_abs_err']:.4g} (limit {c['tol']:.4g}); greedy tokens "
+            f"equal {c['equal']} of {c['tokens']}")
+    return {"moe": moe, "rows": rows, "pairs": pairs, "peak": peak}
+
+
 def run_launcher() -> dict:
     """The port's launcher on the card, as a user runs it, recording its
     run to ``LAUNCHER_RECORD``."""
@@ -978,7 +1447,7 @@ def run_launcher() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 6: record -> fit -> replay, and the Ch. 3 predictor
+# phase 7: record -> fit -> replay, and the Ch. 3 predictor
 # ---------------------------------------------------------------------------
 
 LAUNCHER_RECORD = ROOT / "build" / "calibration" / "launcher_record.json"
@@ -1169,9 +1638,10 @@ def log_calibration(what: str, res: dict) -> None:
         f"{cnt['dropped']['recorded']}, replayed {cnt['dropped']['replayed']}")
     spans = res["spans"]
     if spans:
-        log(f"    recorded exec spans: {len(spans)}, first {spans[0]:.3f}, "
-            f"min {min(spans):.3f} median {statistics.median(spans):.3f} "
-            f"max {max(spans):.3f} (exec #{spans.index(max(spans))}) ticks")
+        log(f"    recorded exec spans: {len(spans)}; the first "
+            f"{spans[0]:.3f} beside the median {statistics.median(spans):.3f}"
+            f"; min {min(spans):.3f}, max {max(spans):.3f} (exec "
+            f"#{spans.index(max(spans))}) ticks")
     for name, row in rep["stages"].items():
         log(f"    {name:8s} recorded {row['recorded_mean']:10.4f} replayed "
             f"{row['replayed_mean']:10.4f} ticks, drift "
@@ -1311,8 +1781,14 @@ def main() -> int:
     rows = [check_decode_attention(mc, ROUTER_MAX_LEN),
             check_paged_attention(mc, 1024, 8, 16),
             check_rmsnorm(mc, 8, 64), check_pmf_conv()]
+    fa = check_family_attention(ROUTER_MAX_LEN)
+    rows[0]["max_abs_err"] = max(rows[0]["max_abs_err"], fa["max_abs_err"])
     log(f"phase 2: kernels agree with their plain versions "
         f"({time.perf_counter() - t0:.1f} s)")
+    log(f"  decode_attention at every family's (G, Hkv, hd), B 1 and 8: "
+        f"{', '.join(fa['shapes'])}; max|err| vs bf16 plain "
+        f"{fa['max_abs_err']:.3g}, vs f32 plain and split model "
+        f"{fa['max_abs_err_f32']:.3g}")
     for r in rows:
         log(f"  {r['name']:24s} {r['shape']}: device time a call: kernel "
             f"{r['ms']:.5f} ms, plain {r['plain_ms']:.5f} ms, library "
@@ -1353,15 +1829,26 @@ def main() -> int:
     log_profile(decode_step_profile(mc, params, paged=False),
                 "decode step (B=1, contiguous cache)", mc.n_layers)
 
+    # the smollm weights make way for the full-width families, and come
+    # back (the same seed) for the calibration row
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    fam = family_phase(smi)
+    log(f"  phase 5 took {time.perf_counter() - t0:.1f} s")
+    params = init_params(mc, torch.Generator(device="cuda").manual_seed(SEED),
+                         "cuda")
+
     t0 = time.perf_counter()
     lr = run_launcher()
-    log(f"phase 5: python -m repro_torch.launch.serve exited 0 in "
+    log(f"phase 6: python -m repro_torch.launch.serve exited 0 in "
         f"{lr['wall_s']:.1f} s: completed {lr['completed']} of "
         f"{lr['n_requests']}, dropped {lr['dropped']}")
 
     from repro_torch.obs import load_record
     t0 = time.perf_counter()
-    log(f"phase 6: record -> fit -> replay ({smi})")
+    log(f"phase 7: record -> fit -> replay ({smi})")
     log_calibration("launcher record (--record-out, schema valid)",
                     fit_and_replay(load_record(str(LAUNCHER_RECORD))))
     cal = calibration_row(mc, params, "cuda")
@@ -1388,10 +1875,10 @@ def main() -> int:
     log(f"    MLP fit (500 steps) wall: card {pr['mlp_fit_s']['cuda']:.3f} s,"
         f" host CPU {pr['mlp_fit_s']['cpu']:.3f} s; GBDT fit (host) "
         f"{pr['gbdt_fit_s']:.2f} s")
-    log(f"  phase 6 took {time.perf_counter() - t0:.1f} s")
+    log(f"  phase 7 took {time.perf_counter() - t0:.1f} s")
 
     st = res["stats"]
-    log(f"phase 7 ({smi}):")
+    log(f"phase 8 ({smi}):")
     log("  batched path:")
     log(f"  completed {res['completed']}, dropped {res['dropped']}, "
         f"batched == one at a time on {res['compared']} requests")
@@ -1422,9 +1909,14 @@ def main() -> int:
         f"{rr['counts']['decode_attention']} = {mc.n_layers} x "
         f"{rr['decode_calls']}")
     log(f"  main-path kernel launches: {rr['counts']}")
+    moe = fam["moe"]
+    log(f"  {MOE_ARCH} behind the Router: completed {moe['completed']} of "
+        f"{FAMILY_REQ}, tokens/s {moe['tokens_per_s']:.2f}, median decode "
+        f"step {moe['median_decode_step_ms']:.3f} ms, peak memory "
+        f"{fam['peak'] / 2 ** 30:.3f} GiB; launches {moe['counts']}")
     for r in rows:
         r["launches"] = sum(c[r["name"]] for c in (
-            res["counts"], rr["counts"], cal["counts"]))
+            res["counts"], rr["counts"], moe["counts"], cal["counts"]))
         r.pop("shape")
         r["wall_ms"] = r.pop("wall")["ms"]
     print(json.dumps({"kernels": rows}), flush=True)

@@ -41,7 +41,7 @@ SIGNATURES = {
     "decode_attention_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "paged_decode_attention_bf16": [_P, _P, _P, _P, _P, _P,
                                     _I, _I, _I, _I, _I, _I, _F, _P],
-    "pmf_conv_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "pmf_conv_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "rmsnorm_bf16": [_P, _P, _P, _I, _I, _F, _P],
     "rmsnorm_f32": [_P, _P, _P, _I, _I, _F, _P],
     "rmsnorm_geometry": [_I, _I, _IP, _IP],

@@ -3,10 +3,13 @@
 //
 // Replaces repro/kernels/pmf_conv/pmf_conv.py:74 `pmf_conv_pallas`.  For each
 // of N (task, machine-tail) rows on a fixed compacted grid:
-//   ok[t]    = [t < dl]
+//   ok[t]    = [t < cut]
 //   conv[t]  = sum_k pet[k] * pct[t-k] * ok[t-k]            (t < Lo = Lc+Le-1)
 //   out[t]   = conv[t] + pct[t] * (1 - ok[t])               (late mass passes)
 //   success  = min(1, sum_{t <= dl} conv[t])
+// Two per-row indices: `cut` on the PCT grid and `dl` on the output grid.
+// The Pallas kernel takes one index for both (cut = dl); the front door
+// passes the two apart, since the grids' origins differ by PET's offset.
 //
 // Bound: at the scheduler's shapes (N=32, L=64) the inputs are 16 KB and the
 // work ~260 kflop, so a launch costs its fixed overhead: the launch itself,
@@ -63,7 +66,8 @@ __host__ __device__ constexpr int row_floats(int le, int lc) {
 __global__ void __launch_bounds__(kWarps * 32)
 pmf_conv_kernel(const float* __restrict__ pet,   // (N, Le)
                 const float* __restrict__ pct,   // (N, Lc)
-                const float* __restrict__ dl,    // (N,)
+                const float* __restrict__ dl,    // (N,) success index
+                const float* __restrict__ cut,   // (N,) PEND cut index
                 float* __restrict__ out,         // (N, Lo)
                 float* __restrict__ success,     // (N,)
                 int n, int le, int lc) {
@@ -87,7 +91,7 @@ pmf_conv_kernel(const float* __restrict__ pet,   // (N, Le)
   for (int k = le + lane; k < le4 + 8; k += 32) e_s[k] = 0.f;
   for (int t = lane - kPad; t < 0; t += 32) at(t) = 0.f;
   for (int t = lc + lane; t < lc + kPad; t += 32) at(t) = 0.f;
-  const float d = dl[row];
+  const float d = dl[row], c = cut[row];
   float late[kOut];                    // pct[t] of the lane's outputs
   auto load_late = [&](int t0) {
 #pragma unroll
@@ -106,7 +110,7 @@ pmf_conv_kernel(const float* __restrict__ pet,   // (N, Le)
     for (int r = 0; r < kOut; ++r) {
       const int i = b + lane + 32 * r;
       if (i < le) e_s[i] = pe[r];
-      if (i < lc) at(i) = (float)i < d ? pc[r] : 0.f;
+      if (i < lc) at(i) = (float)i < c ? pc[r] : 0.f;
     }
   }
   __syncwarp();
@@ -151,7 +155,7 @@ pmf_conv_kernel(const float* __restrict__ pet,   // (N, Le)
       const int t = t0 + j;
       if (t >= lo) break;
       if ((float)t <= d) part += acc[j];
-      out[(size_t)row * lo + t] = acc[j] + ((float)t < d ? 0.f : late[j]);
+      out[(size_t)row * lo + t] = acc[j] + ((float)t < c ? 0.f : late[j]);
     }
   }
 #pragma unroll
@@ -163,8 +167,8 @@ pmf_conv_kernel(const float* __restrict__ pet,   // (N, Le)
 }  // namespace
 
 extern "C" int pmf_conv_f32(const void* pet, const void* pct, const void* dl,
-                            void* out, void* success, int n, int le, int lc,
-                            void* stream) {
+                            const void* cut, void* out, void* success, int n,
+                            int le, int lc, void* stream) {
   const size_t row_smem = sizeof(float) * (size_t)row_floats(le, lc);
   int rows = kWarps;
   while (rows > 1 && rows * row_smem > kStaticSmem) rows >>= 1;
@@ -178,7 +182,7 @@ extern "C" int pmf_conv_f32(const void* pet, const void* pct, const void* dl,
   }
   pmf_conv_kernel<<<(n + rows - 1) / rows, rows * 32, smem,
                     (cudaStream_t)stream>>>(
-      (const float*)pet, (const float*)pct, (const float*)dl, (float*)out,
-      (float*)success, n, le, lc);
+      (const float*)pet, (const float*)pct, (const float*)dl,
+      (const float*)cut, (float*)out, (float*)success, n, le, lc);
   return (int)cudaGetLastError();
 }

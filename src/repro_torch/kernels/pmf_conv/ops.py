@@ -20,14 +20,17 @@ from ...obs.profiling import profiled
 __all__ = ["pmf_conv", "pmf_conv_cuda", "pack_pmfs", "batched_success"]
 
 
-def pmf_conv_cuda(pet, pct, dl):
-    """The CUDA kernel.  pet (N, Le), pct (N, Lc), dl (N,) f32 on the card
-    -> (out (N, Lc+Le-1), success (N,))."""
+def pmf_conv_cuda(pet, pct, dl, cut=None):
+    """The CUDA kernel.  pet (N, Le), pct (N, Lc), dl (N,) and cut (N,)
+    f32 on the card -> (out (N, Lc+Le-1), success (N,)).  ``cut`` None
+    cuts at ``dl``, as the Pallas kernel does."""
     n, le = pet.shape
     lc = pct.shape[1]
-    if pct.shape[0] != n or dl.shape != (n,):
-        raise ValueError("pet, pct and dl must share the row count")
-    for name, t in (("pet", pet), ("pct", pct), ("dl", dl)):
+    if cut is None:
+        cut = dl
+    if pct.shape[0] != n or dl.shape != (n,) or cut.shape != (n,):
+        raise ValueError("pet, pct, dl and cut must share the row count")
+    for name, t in (("pet", pet), ("pct", pct), ("dl", dl), ("cut", cut)):
         if not t.is_cuda or t.dtype != torch.float32 \
                 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous CUDA float32 "
@@ -36,8 +39,8 @@ def pmf_conv_cuda(pet, pct, dl):
                       device=pet.device)
     suc = torch.empty((n,), dtype=torch.float32, device=pet.device)
     err = library().pmf_conv_f32(
-        pet.data_ptr(), pct.data_ptr(), dl.data_ptr(), out.data_ptr(),
-        suc.data_ptr(), n, le, lc, current_stream(pet.device))
+        pet.data_ptr(), pct.data_ptr(), dl.data_ptr(), cut.data_ptr(),
+        out.data_ptr(), suc.data_ptr(), n, le, lc, current_stream(pet.device))
     pmf_conv_cuda.launches += 1
     check(err, "pmf_conv")
     return out, suc
@@ -46,15 +49,17 @@ def pmf_conv_cuda(pet, pct, dl):
 pmf_conv_cuda.launches = 0
 
 
-def _pmf_conv(pet, pct, dl):
+def _pmf_conv(pet, pct, dl, cut=None):
     if pet.is_cuda:
-        return pmf_conv_cuda(pet, pct, dl)
-    return pmf_conv_ref(pet, pct, dl)
+        return pmf_conv_cuda(pet, pct, dl, cut)
+    return pmf_conv_ref(pet, pct, dl, cut)
 
 
-def pmf_conv(pet, pct, dl):
-    """(out, success) for a batch of PEND_DROP convolutions."""
-    return profiled("pmf_conv", _pmf_conv, pet, pct, dl)
+def pmf_conv(pet, pct, dl, cut=None):
+    """(out, success) for a batch of PEND_DROP convolutions: the PCT cut
+    at ``cut`` (default ``dl``) on its grid, the success summed to ``dl``
+    on the output grid."""
+    return profiled("pmf_conv", _pmf_conv, pet, pct, dl, cut)
 
 
 def pack_pmfs(pmfs, length: int) -> tuple[np.ndarray, np.ndarray]:
@@ -81,24 +86,29 @@ def batched_success(pets, pcts, deadlines, length: int = 128,
     """Chance-of-success for N (task, machine-tail) pairs.
 
     ``pets``/``pcts``: lists of PMF; ``deadlines``: absolute times.
-    ``device`` None runs on CUDA.  Both PMF offsets fold into one per-row
-    deadline index: out[t] sits at absolute time pet_off + pct_off + t, and
-    the PEND cut ``t_c < dl - pct_off - pet_off`` on the pct grid shifts
-    every path by the same pet offset, so one index serves both (the same
-    algebra as ``repro.kernels.pmf_conv.ops.batched_success``; the tests
-    hold it against ``core.pmf.chance_of_success``).
+    ``device`` None runs on CUDA.  Each row carries two indices: the PEND
+    cut on the PCT grid, ``dl - pct_off`` (the previous task frees the
+    machine strictly before the deadline), and the success sum's end on
+    the output grid, ``dl - pet_off - pct_off`` (out[t] sits at absolute
+    time pet_off + pct_off + t).  So the success is Procedure 2's
+    ``core.pmf.chance_of_success`` exactly.  The JAX front door
+    (``repro.kernels.pmf_conv.ops.batched_success``) folds both into the
+    second index, which cuts at ``dl - pet_off`` and drops the term
+    ``pet[0] * pct(dl - pet_off)``.
     """
     dev = resolve_device(device)
     n = len(pets)
     pet_v, pet_o = pack_pmfs(pets, length)
     pct_v, pct_o = pack_pmfs(pcts, length)
-    dl_idx = np.asarray(deadlines, np.int64) - pet_o - pct_o
-    # pet, pct and the deadline indices as three segments of one buffer:
-    # one copy to the device, and only the success chances come back
+    dls = np.asarray(deadlines, np.int64)
+    dl_idx, cut_idx = dls - pet_o - pct_o, dls - pct_o
+    # pet, pct and the two indices as four segments of one buffer: one
+    # copy to the device, and only the success chances come back
     host = np.concatenate([pet_v.ravel(), pct_v.ravel(),
-                           np.maximum(dl_idx, -1).astype(np.float32)])
+                           np.maximum(dl_idx, -1).astype(np.float32),
+                           np.maximum(cut_idx, -1).astype(np.float32)])
     buf = torch.from_numpy(host).to(dev)
-    cut = n * length
-    _, suc = pmf_conv(buf[:cut].view(n, length),
-                      buf[cut:2 * cut].view(n, length), buf[2 * cut:])
+    m = n * length
+    _, suc = pmf_conv(buf[:m].view(n, length), buf[m:2 * m].view(n, length),
+                      buf[2 * m:2 * m + n], buf[2 * m + n:])
     return suc.cpu().numpy()

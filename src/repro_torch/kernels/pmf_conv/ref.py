@@ -4,9 +4,11 @@ Semantics of ``repro.kernels.pmf_conv.ref`` (dissertation Eqs. 5.2-5.5):
 
   inputs:  pet  (N, Le)   execution-time PMFs
            pct  (N, Lc)   previous completion-time PMFs
-           dl   (N,)      deadline index on the shared grid
+           dl   (N,)      deadline index on the output grid
+           cut  (N,)      PEND cut index on the PCT grid (default: dl,
+                          the JAX ref's one index for both)
   outputs: out  (N, Lc+Le-1) completion PMFs under PEND_DROP:
-             conv(pet, pct * [t < dl]) + passthrough(pct * [t >= dl])
+             conv(pet, pct * [t < cut]) + passthrough(pct * [t >= cut])
            success (N,)   P(complete <= dl) = sum_{t<=dl} conv part
 """
 
@@ -16,12 +18,14 @@ import torch
 import torch.nn.functional as F
 
 
-def pmf_conv_ref(pet, pct, dl):
+def pmf_conv_ref(pet, pct, dl, cut=None):
     n, le = pet.shape
     lc = pct.shape[1]
     lo = lc + le - 1
+    if cut is None:
+        cut = dl
     t_c = torch.arange(lc, device=pct.device)[None, :]
-    ok = (t_c < dl[:, None]).to(pct.dtype)
+    ok = (t_c < cut[:, None]).to(pct.dtype)
     pct_ok = pct * ok
     pct_late = pct * (1.0 - ok)
     out = _batched_conv(pet, pct_ok)

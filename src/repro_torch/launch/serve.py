@@ -8,7 +8,11 @@ The port of ``repro.launch.serve``: every flag of the JAX launcher, the
 same reduced 2-layer model (random weights from a seeded
 ``torch.Generator``) and the same JSON summary, plus ``--device`` (CUDA
 by default; ``--device cpu`` runs the kernels' plain versions on the
-host).
+host).  ``--arch`` takes any registered id (``configs.registry.ARCHS``):
+moe, hybrid and xLSTM units prefill each prompt at its own length and
+serve one task at a time (step batching refuses them, as the JAX unit
+runner does), and enc-dec units refuse to start, since a request carries
+no encoder frames.
 
 ``--planes N`` shards the engine into N planes behind a ``Router``
 (``--router`` picks the policy); the JSON summary carries the aggregate,

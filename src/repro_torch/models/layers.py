@@ -7,7 +7,11 @@ JAX package leaves them to XLA; every norm goes through the port's RMSNorm
 kernel (``kernels.rmsnorm``) and, on the card, the contiguous-cache decode
 attention through the port's flash-decode kernel
 (``kernels.decode_attention``).  Forward only: the port serves, it does not
-train.  Cross-attention (enc-dec) is not ported.
+train.
+
+``ParamInit`` draws the random weights of every module's ``*_init``: on a
+given device from a given ``torch.Generator``, in bounded pieces, so a
+full-width stacked weight never has an f32 copy of itself in memory.
 """
 
 from __future__ import annotations
@@ -20,6 +24,75 @@ import torch.nn.functional as F
 from ..kernels.decode_attention.ops import \
     decode_attention as _decode_attention_kernel
 from ..kernels.rmsnorm.ops import rmsnorm as _rmsnorm_kernel
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+#: the most elements one f32 draw holds (512 MB); a larger weight is drawn
+#: slice by slice along its leading axes
+DRAW_CHUNK = 1 << 27
+
+
+class ParamInit:
+    """Random parameters with the JAX package's dtypes: normals drawn in f32
+    from ``generator`` on ``device``, scaled, then cast, one slice of at
+    most ``DRAW_CHUNK`` elements at a time."""
+
+    def __init__(self, generator: torch.Generator, device):
+        self.gen = generator
+        self.device = device
+
+    def normal(self, shape, std: float, dtype=torch.bfloat16):
+        out = torch.empty(tuple(shape), dtype=dtype, device=self.device)
+        self._fill(out, std)
+        return out
+
+    def _fill(self, out, std: float) -> None:
+        if out.numel() <= DRAW_CHUNK or out.dim() == 0:
+            out.copy_(torch.randn(out.shape, generator=self.gen,
+                                  device=self.device,
+                                  dtype=torch.float32) * std)
+            return
+        # as many leading slices as fit in one draw, else one at a time
+        rows = DRAW_CHUNK // out[0].numel()
+        if rows == 0:
+            for part in out:
+                self._fill(part, std)
+            return
+        for i in range(0, out.shape[0], rows):
+            self._fill(out[i:i + rows], std)
+
+    def zeros(self, shape, dtype=torch.bfloat16):
+        return torch.zeros(tuple(shape), dtype=dtype, device=self.device)
+
+    def ones(self, shape, dtype=torch.bfloat16):
+        return torch.ones(tuple(shape), dtype=dtype, device=self.device)
+
+    def dense(self, lead, d_in: int, d_out: int, bias: bool = False):
+        """``layers.dense_init`` for ``lead`` stacked layers."""
+        p = {"w": self.normal(lead + (d_in, d_out), 1.0 / math.sqrt(d_in))}
+        if bias:
+            p["b"] = self.zeros(lead + (d_out,))
+        return p
+
+    def rmsnorm(self, lead, d: int):
+        return {"scale": self.ones(lead + (d,))}
+
+    def attention(self, lead, cfg, bias: bool = False):
+        """``layers.attention_init``."""
+        d, hd = cfg.d_model, cfg.resolved_head_dim
+        return {"wq": self.dense(lead, d, cfg.n_heads * hd, bias),
+                "wk": self.dense(lead, d, cfg.n_kv_heads * hd, bias),
+                "wv": self.dense(lead, d, cfg.n_kv_heads * hd, bias),
+                "wo": self.dense(lead, cfg.n_heads * hd, d)}
+
+    def mlp(self, lead, d_model: int, d_ff: int):
+        """``layers.mlp_init``."""
+        return {"w_gate": self.dense(lead, d_model, d_ff),
+                "w_up": self.dense(lead, d_model, d_ff),
+                "w_down": self.dense(lead, d_ff, d_model)}
+
 
 # ---------------------------------------------------------------------------
 # dense / embed / norm
@@ -40,7 +113,7 @@ def embed(p, tokens):
 def rmsnorm(p, x, eps: float = 1e-5):
     """``layers.rmsnorm`` through the port's kernel (same formula and cast
     order as the jnp version and as ``rmsnorm_pallas``)."""
-    return _rmsnorm_kernel(x, p["scale"], eps)
+    return _rmsnorm_kernel(x.contiguous(), p["scale"], eps)
 
 
 # ---------------------------------------------------------------------------
@@ -184,10 +257,12 @@ def decode_attention_plain(q, k_cache, v_cache, length, window: int = 0):
 
 def attention_apply(p, x, cfg, positions=None, kv_cache=None, length=None,
                     kv_out: bool = False, prefix_kv=None, q_offset: int = 0,
-                    kv_len: int | None = None):
-    """GQA attention (the non-cross modes of ``layers.attention_apply``).
+                    kv_len: int | None = None, memory=None):
+    """GQA attention (``layers.attention_apply``).
 
     * prefill: x (B,S,D); returns (out, (k,v) if kv_out)
+    * cross-attention: memory (B,Sm,D) — K/V from memory, no RoPE and no
+      causal mask; kv_out returns the memory's K/V
     * decode:  x (B,1,D) with kv_cache=(k,v) (B,Smax,Hkv,hd), length (B,);
       the caches are updated in place and returned
     * cached prefill: prefix_kv=(pk,pv) (B,P,Hkv,hd) already-RoPE'd KV for
@@ -204,6 +279,15 @@ def attention_apply(p, x, cfg, positions=None, kv_cache=None, length=None,
     q = dense(p["wq"], x).reshape(b, s, h, hd)
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :] + q_offset
+
+    if memory is not None:
+        sm = memory.shape[1]
+        k = dense(p["wk"], memory).reshape(b, sm, hkv, hd)
+        v = dense(p["wv"], memory).reshape(b, sm, hkv, hd)
+        out = full_attention(q, _repeat_kv(k, h // hkv),
+                             _repeat_kv(v, h // hkv), causal=False)
+        out = dense(p["wo"], out.reshape(b, s, h * hd))
+        return (out, (k, v)) if kv_out else (out, None)
 
     if kv_cache is None:
         k = dense(p["wk"], x).reshape(b, s, hkv, hd)

@@ -1,92 +1,166 @@
-"""Dense serving model in PyTorch, mirroring ``repro.models.transformer``.
+"""Serving model in PyTorch, mirroring ``repro.models.transformer``: one
+init/prefill/decode trio covering every family the JAX package has (dense,
+vlm, moe, hybrid Mamba2, xLSTM and enc-dec), plus the paged and
+prefix-cached entry points of the attention families.
 
-Only the dense family (smollm, llama-style) is ported.  Parameters keep
-the JAX package's pytree: ``params["layers"]`` holds every per-layer
-weight stacked on axis 0, and a Python loop over layers replaces
-``lax.scan``.  KV caches and the paged arena are updated in place (the JAX
-functions return fresh arrays; these return the same tensors, written).
+Parameters keep the JAX package's pytree: per-layer weights stacked on
+axis 0 (twice for hybrid's (groups, period) Mamba2 blocks), and a Python
+loop over layers replaces ``lax.scan``.  Caches have the JAX layouts and
+are updated in place (the JAX functions return fresh arrays; these return
+the same tensors, written).  Training (the loss and the cache-less
+backbone) is not ported.
 """
 
 from __future__ import annotations
 
-import math
-
 import torch
-import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 from ..kernels.decode_attention.ops import paged_decode_attention
-from .layers import (apply_rope, attention_apply, dense, embed, mlp_apply,
-                     rmsnorm)
+from . import xlstm as xl
+from .layers import (ParamInit, apply_rope, attention_apply,
+                     decode_attention, dense, embed, mlp_apply, rmsnorm)
+from .moe import moe_apply, moe_init
+from .ssm import mamba2_apply, mamba2_init
 
 
-def _check_dense(cfg: ModelConfig, what: str) -> None:
-    if cfg.family != "dense":
-        raise ValueError(f"{what} is ported for the dense family only, "
-                         f"not {cfg.family}")
+def _attention_family(cfg: ModelConfig, what: str) -> None:
+    """The JAX entry points' refusal of the recurrent and enc-dec families
+    (``init_paged_cache``, ``chunk_prefill_fn``, ``paged_decode_fn``,
+    ``prefill_from_cache``), in their words."""
+    if cfg.family not in ("dense", "vlm"):
+        raise ValueError(f"{what} unsupported for family {cfg.family}")
 
 
 # ===========================================================================
 # Parameter init
 # ===========================================================================
 
+def _dense_layer(init: ParamInit, cfg: ModelConfig, d_ff: int, lead=(),
+                 bias: bool | None = None) -> dict:
+    return {"ln1": init.rmsnorm(lead, cfg.d_model),
+            "attn": init.attention(lead, cfg, cfg.qkv_bias if bias is None
+                                   else bias),
+            "ln2": init.rmsnorm(lead, cfg.d_model),
+            "mlp": init.mlp(lead, cfg.d_model, d_ff)}
+
+
+def _moe_layer(init: ParamInit, cfg: ModelConfig, lead=()) -> dict:
+    return {"ln1": init.rmsnorm(lead, cfg.d_model),
+            "attn": init.attention(lead, cfg, cfg.qkv_bias),
+            "ln2": init.rmsnorm(lead, cfg.d_model),
+            "moe": moe_init(init, cfg.d_model, cfg.moe, lead)}
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device=None) -> dict:
-    """Random-init parameters with the JAX package's shapes, scales and
-    dtypes (normal / sqrt(d_in) weights, 0.02 embeddings, unit norms),
+    """Random-init parameters with the JAX package's tree, shapes, scales
+    and dtypes (normal / sqrt(d_in) weights, 0.02 embeddings, unit norms),
     drawn from ``generator`` on ``device`` (CUDA unless ``"cpu"`` is
-    passed; the generator must live on the same device)."""
-    _check_dense(cfg, "init_params")
+    passed; the generator must live on the same device).  Weights are
+    drawn in bounded slices (``layers.ParamInit``), so a full-width model
+    needs no f32 copy of a stacked tensor."""
     device = resolve_device(device)
-    bf = torch.bfloat16
-    d, L = cfg.d_model, cfg.n_layers
-    hd = cfg.resolved_head_dim
-
-    def normal(shape, std):
-        return (torch.randn(shape, generator=generator, device=device,
-                            dtype=torch.float32) * std).to(bf)
-
-    def dense_w(d_in, d_out):
-        return {"w": normal((L, d_in, d_out), 1.0 / math.sqrt(d_in))}
-
-    def ones(shape):
-        return {"scale": torch.ones(shape, dtype=bf, device=device)}
-
-    attn = {"wq": dense_w(d, cfg.n_heads * hd),
-            "wk": dense_w(d, cfg.n_kv_heads * hd),
-            "wv": dense_w(d, cfg.n_kv_heads * hd),
-            "wo": dense_w(cfg.n_heads * hd, d)}
-    if cfg.qkv_bias:
-        for name, width in (("wq", cfg.n_heads * hd),
-                            ("wk", cfg.n_kv_heads * hd),
-                            ("wv", cfg.n_kv_heads * hd)):
-            attn[name]["b"] = torch.zeros((L, width), dtype=bf, device=device)
-    params = {
-        "final_ln": {"scale": torch.ones((d,), dtype=bf, device=device)},
-        "embed": {"emb": normal((cfg.vocab, d), 0.02)},
-        "layers": {"ln1": ones((L, d)), "attn": attn, "ln2": ones((L, d)),
-                   "mlp": {"w_gate": dense_w(d, cfg.d_ff),
-                           "w_up": dense_w(d, cfg.d_ff),
-                           "w_down": dense_w(cfg.d_ff, d)}},
-    }
+    init = ParamInit(generator, device)
+    d, fam = cfg.d_model, cfg.family
+    params: dict = {"final_ln": init.rmsnorm((), d)}
+    if cfg.embed_inputs or fam in ("vlm", "encdec", "audio"):
+        params["embed"] = {"emb": init.normal((cfg.vocab, d), 0.02)}
     if not cfg.tie_embeddings:
-        params["unembed"] = {"w": normal((d, cfg.vocab), 1.0 / math.sqrt(d))}
+        params["unembed"] = init.dense((), d, cfg.vocab)
+
+    if fam in ("dense", "vlm"):
+        params["layers"] = _dense_layer(init, cfg, cfg.d_ff, (cfg.n_layers,))
+    elif fam == "moe":
+        period = cfg.moe.layer_period
+        if period == 1:
+            # layer 0 dense (DeepSeek-MoE), rest MoE
+            params["dense0"] = _dense_layer(init, cfg, cfg.d_ff)
+            params["layers"] = _moe_layer(init, cfg, (cfg.n_layers - 1,))
+        else:
+            # interleaved dense/MoE units (llama4: period 2)
+            n_units = cfg.n_layers // period
+            params["dense_layers"] = _dense_layer(init, cfg, cfg.d_ff,
+                                                  (n_units,))
+            params["layers"] = _moe_layer(init, cfg, (n_units,))
+    elif fam == "hybrid":
+        period = cfg.ssm.attn_period
+        lead = (cfg.n_layers // period, period)
+        params["layers"] = {"ln": init.rmsnorm(lead, d),
+                            "mamba": mamba2_init(init, d, cfg.ssm, lead)}
+        params["shared_attn"] = _dense_layer(init, cfg, cfg.d_ff)
+    elif fam == "ssm":          # xlstm
+        lead = (cfg.n_layers // 2,)
+        params["layers"] = {
+            "m_ln": init.rmsnorm(lead, d),
+            "mlstm": xl.mlstm_init(init, d, cfg.n_heads,
+                                   cfg.xlstm.proj_factor, lead),
+            "s_ln": init.rmsnorm(lead, d),
+            "slstm": xl.slstm_init(init, d, cfg.n_heads, lead)}
+    elif fam == "encdec":
+        params["encoder"] = _dense_layer(init, cfg, cfg.d_ff,
+                                         (cfg.encoder_layers,), bias=False)
+        lead = (cfg.n_layers,)
+        params["layers"] = {
+            "ln1": init.rmsnorm(lead, d),
+            "self_attn": init.attention(lead, cfg),
+            "ln_x": init.rmsnorm(lead, d),
+            "cross_attn": init.attention(lead, cfg),
+            "ln2": init.rmsnorm(lead, d),
+            "mlp": init.mlp(lead, d, cfg.d_ff)}
+    else:
+        raise ValueError(f"unknown family {fam}")
     return params
 
 
-def layer_params(params: dict, i: int) -> dict:
-    """Per-layer views of the stacked ``params["layers"]``, one dict per
-    layer (what ``lax.scan`` hands its body)."""
-    def index(tree, j):
-        if isinstance(tree, dict):
-            return {k: index(v, j) for k, v in tree.items()}
-        return tree[j]
-    return index(params["layers"], i)
+def _index(tree, i):
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return tree[i]
 
 
-def _layers(params: dict, n: int) -> list:
-    return [layer_params(params, i) for i in range(n)]
+def layer_params(params: dict, i: int, key: str = "layers") -> dict:
+    """Per-layer views of the stacked ``params[key]``, one dict per layer
+    (what ``lax.scan`` hands its body)."""
+    return _index(params[key], i)
+
+
+def _stack_len(tree) -> int:
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree.shape[0]
+
+
+def _layers(params: dict, key: str = "layers") -> list:
+    return [layer_params(params, i, key)
+            for i in range(_stack_len(params[key]))]
+
+
+def _attention_layers(cfg: ModelConfig, params: dict) -> list:
+    """(layer params, cache index) of every attention layer of the dense,
+    vlm and moe families, in the order they run.  MoE with period 1 runs
+    ``dense0`` first; with period 2, unit u runs its dense layer (cache u)
+    then its MoE layer (cache n_units + u): dense caches first, MoE caches
+    second, as the JAX stack holds them."""
+    if cfg.family == "moe" and cfg.moe.layer_period == 1:
+        return [(params["dense0"], 0)] + [
+            (lp, i + 1) for i, lp in enumerate(_layers(params))]
+    if cfg.family == "moe":
+        dense_l, moe_l = _layers(params, "dense_layers"), _layers(params)
+        nu = len(moe_l)
+        return [pair for u in range(nu)
+                for pair in ((dense_l[u], u), (moe_l[u], nu + u))]
+    return [(lp, i) for i, lp in enumerate(_layers(params))]
+
+
+def _ffn(cfg, lp, h):
+    """The block's second half: the dense MLP or the MoE layer."""
+    x = rmsnorm(lp["ln2"], h)
+    if "mlp" in lp:
+        return h + mlp_apply(lp["mlp"], x)
+    out, _ = moe_apply(lp["moe"], x, cfg.moe)
+    return h + out
 
 
 def _unembed_matrix(cfg, params):
@@ -97,74 +171,226 @@ def _unembed_matrix(cfg, params):
 
 def _logits(cfg, params, h_last):
     """Final norm + vocab projection of (B, D) hidden rows -> f32 logits."""
-    h_last = rmsnorm(params["final_ln"], h_last.contiguous())
+    h_last = rmsnorm(params["final_ln"], h_last)
     return (h_last @ _unembed_matrix(cfg, params)).float()
+
+
+def _inputs(cfg, params, batch):
+    """The prefill's input rows: embedded tokens, or the precomputed
+    embeddings of a model whose inputs are not tokens (vlm)."""
+    if cfg.embed_inputs:
+        return embed(params["embed"], batch["tokens"])
+    return batch["embeds"]
 
 
 # ---------------------------------------------------------------------------
 # Serving: contiguous cache init / prefill / decode-step
 # ---------------------------------------------------------------------------
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
-    _check_dense(cfg, "init_cache")
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None,
+               dtype=torch.bfloat16):
+    """Zero cache with the JAX layouts: stacked KV for the attention
+    families, (groups, period) SSM/conv states plus the shared attention's
+    KV for hybrid, stacked recurrent states for xLSTM, self- and cross-KV
+    (padded to ``max_len``, ``enc_len`` deep) for enc-dec.  KV and conv
+    states are in ``dtype`` (the activations' dtype, as a JAX prefill
+    makes them); recurrent states are f32."""
     device = resolve_device(device)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads,
-             cfg.resolved_head_dim)
-    return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
-            "v": torch.zeros(shape, dtype=torch.bfloat16, device=device),
-            "len": torch.zeros((batch,), dtype=torch.int32, device=device)}
+    hd, fam = cfg.resolved_head_dim, cfg.family
+    bf, f32 = dtype, torch.float32
+
+    def zeros(shape, dtype=bf):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    def kv(n):
+        return zeros((n, batch, max_len, cfg.n_kv_heads, hd))
+
+    length = zeros((batch,), torch.int32)
+    if fam in ("dense", "vlm", "moe"):
+        return {"k": kv(cfg.n_layers), "v": kv(cfg.n_layers), "len": length}
+    if fam == "hybrid":
+        period = cfg.ssm.attn_period
+        groups = cfg.n_layers // period
+        d_inner = cfg.ssm.expand * cfg.d_model
+        n_heads = cfg.ssm.n_ssm_heads or max(1, d_inner // 64)
+        return {"ssm": zeros((groups, period, batch, n_heads,
+                              d_inner // n_heads, cfg.ssm.state_dim), f32),
+                "conv": zeros((groups, period, batch,
+                               cfg.ssm.conv_width - 1, d_inner)),
+                "k": kv(groups), "v": kv(groups), "len": length}
+    if fam == "ssm":
+        pairs, d = cfg.n_layers // 2, cfg.d_model
+        hd_m = int(cfg.xlstm.proj_factor * d) // cfg.n_heads
+
+        def full(shape):
+            return torch.full(shape, -1e30, dtype=f32, device=device)
+        return {"C": zeros((pairs, batch, cfg.n_heads, hd_m, hd_m), f32),
+                "n": zeros((pairs, batch, cfg.n_heads, hd_m), f32),
+                "m": full((pairs, batch, cfg.n_heads)),
+                "sc": zeros((pairs, batch, d), f32),
+                "sn": zeros((pairs, batch, d), f32),
+                "sm": full((pairs, batch, d)),
+                "sh": zeros((pairs, batch, d), f32),
+                "len": length}
+    if fam == "encdec":
+        return {"k": kv(cfg.n_layers), "v": kv(cfg.n_layers),
+                "ck": kv(cfg.n_layers), "cv": kv(cfg.n_layers),
+                "len": length,
+                "enc_len": torch.full((batch,), max_len, dtype=torch.int32,
+                                      device=device)}
+    raise ValueError(fam)
 
 
 def decode_fn(cfg: ModelConfig):
     """Returns f(params, cache, tokens) -> (logits, cache).
 
     tokens: (B,) int — the latest token per sequence.  ``cache["len"]``
-    holds the current context length per sequence.
+    holds the current context length per sequence.  Every attention
+    (self- and cross-) runs through the port's flash-decode kernel on the
+    card, every norm but Mamba2's gated one through its RMSNorm kernel.
     """
-    _check_dense(cfg, "decode_fn")
+    fam = cfg.family
+    if fam not in ("dense", "vlm", "moe", "hybrid", "ssm", "encdec"):
+        raise ValueError(fam)
+    hd = cfg.resolved_head_dim
+
+    def self_attn(p, ln, h, kc, vc, length):
+        a, _ = attention_apply(p, rmsnorm(ln, h), cfg,
+                               positions=length[:, None], kv_cache=(kc, vc),
+                               length=length)
+        return h + a
 
     def f(params, cache, tokens):
         h = embed(params["embed"], tokens[:, None])
         length = cache["len"]
-        positions = length[:, None]
-        for i, lp in enumerate(_layers(params, cfg.n_layers)):
-            a, _ = attention_apply(
-                lp["attn"], rmsnorm(lp["ln1"], h), cfg, positions=positions,
-                kv_cache=(cache["k"][i], cache["v"][i]), length=length)
-            h = h + a
-            h = h + mlp_apply(lp["mlp"], rmsnorm(lp["ln2"], h))
+        if fam in ("dense", "vlm", "moe"):
+            for lp, i in _attention_layers(cfg, params):
+                h = self_attn(lp["attn"], lp["ln1"], h, cache["k"][i],
+                              cache["v"][i], length)
+                h = _ffn(cfg, lp, h)
+        elif fam == "hybrid":
+            shared = params["shared_attn"]
+            for g, glp in enumerate(_layers(params)):
+                for j in range(cfg.ssm.attn_period):
+                    lp = _index(glp, j)
+                    y, st, cst = mamba2_apply(
+                        lp["mamba"], rmsnorm(lp["ln"], h), cfg.ssm,
+                        state=cache["ssm"][g, j], conv_state=cache["conv"][g, j])
+                    h = h + y
+                    cache["ssm"][g, j] = st
+                    cache["conv"][g, j] = cst
+                h = self_attn(shared["attn"], shared["ln1"], h, cache["k"][g],
+                              cache["v"][g], length)
+                h = _ffn(cfg, shared, h)
+        elif fam == "ssm":
+            for i, lp in enumerate(_layers(params)):
+                y, mst = xl.mlstm_apply(
+                    lp["mlstm"], rmsnorm(lp["m_ln"], h), cfg.n_heads,
+                    state=(cache["C"][i], cache["n"][i], cache["m"][i]))
+                h = h + y
+                y, sst = xl.slstm_apply(
+                    lp["slstm"], rmsnorm(lp["s_ln"], h),
+                    state=(cache["sc"][i], cache["sn"][i], cache["sm"][i],
+                           cache["sh"][i]))
+                h = h + y
+                for name, t in zip(("C", "n", "m", "sc", "sn", "sm", "sh"),
+                                   mst + sst):
+                    cache[name][i] = t
+        else:                                   # encdec
+            for i, lp in enumerate(_layers(params)):
+                h = self_attn(lp["self_attn"], lp["ln1"], h, cache["k"][i],
+                              cache["v"][i], length)
+                # cross-attention reads the precomputed memory KV directly
+                b = h.shape[0]
+                xq = dense(lp["cross_attn"]["wq"], rmsnorm(lp["ln_x"], h))
+                a2 = decode_attention(xq.reshape(b, cfg.n_heads, hd),
+                                      cache["ck"][i], cache["cv"][i],
+                                      cache["enc_len"])
+                h = h + dense(lp["cross_attn"]["wo"],
+                              a2.reshape(b, 1, cfg.n_heads * hd))
+                h = h + mlp_apply(lp["mlp"], rmsnorm(lp["ln2"], h))
         cache = dict(cache, len=length + 1)
         return _logits(cfg, params, h[:, 0]), cache
     return f
 
 
-def _pad_kv(kv, max_len: int):
-    """(L, B, S, Hkv, hd) -> (L, B, max_len, Hkv, hd)."""
-    return F.pad(kv, (0, 0, 0, 0, 0, max_len - kv.shape[2]))
+def _encode(cfg, params, enc_embeds):
+    """The encoder stack: each block attends over its own normed input."""
+    h = enc_embeds
+    for lp in _layers(params, "encoder"):
+        xn = rmsnorm(lp["ln1"], h)
+        a, _ = attention_apply(lp["attn"], xn, cfg, memory=xn)
+        h = h + a
+        h = h + mlp_apply(lp["mlp"], rmsnorm(lp["ln2"], h))
+    return h
 
 
 def prefill_fn(cfg: ModelConfig):
     """Returns f(params, batch, max_len) -> (last-token logits, cache).
 
-    The cache is fully populated so ``decode_fn`` can continue generation.
+    ``batch`` holds ``tokens`` (B, S), or ``embeds`` (B, S, D) for a model
+    whose inputs are not tokens (vlm), plus ``enc_embeds`` (B, Sm, D) for
+    enc-dec.  The cache is fully populated so ``decode_fn`` can continue
+    generation: KV for the attention families, SSM/conv states and the
+    shared attention's KV for hybrid, recurrent states for xLSTM, self- and
+    cross-KV for enc-dec.
     """
-    _check_dense(cfg, "prefill_fn")
+    fam = cfg.family
+    if fam not in ("dense", "vlm", "moe", "hybrid", "ssm", "encdec"):
+        raise ValueError(fam)
+
+    def attn_block(p, ln, h):
+        a, (k, v) = attention_apply(p, rmsnorm(ln, h), cfg, kv_out=True)
+        return h + a, k, v
 
     def f(params, batch, max_len: int):
-        h = embed(params["embed"], batch["tokens"])
+        if fam == "encdec":
+            memory = _encode(cfg, params, batch["enc_embeds"])
+            h = embed(params["embed"], batch["tokens"])
+        else:
+            h = _inputs(cfg, params, batch)
         b, s = h.shape[0], h.shape[1]
-        ks, vs = [], []
-        for lp in _layers(params, cfg.n_layers):
-            a, (k, v) = attention_apply(lp["attn"], rmsnorm(lp["ln1"], h),
-                                        cfg, kv_out=True)
-            h = h + a
-            h = h + mlp_apply(lp["mlp"], rmsnorm(lp["ln2"], h))
-            ks.append(k)
-            vs.append(v)
-        cache = {"k": _pad_kv(torch.stack(ks), max_len),
-                 "v": _pad_kv(torch.stack(vs), max_len),
-                 "len": torch.full((b,), s, dtype=torch.int32,
-                                   device=h.device)}
+        cache = init_cache(cfg, b, max_len, h.device, h.dtype)
+        if fam in ("dense", "vlm", "moe"):
+            for lp, i in _attention_layers(cfg, params):
+                h, k, v = attn_block(lp["attn"], lp["ln1"], h)
+                cache["k"][i, :, :s], cache["v"][i, :, :s] = k, v
+                h = _ffn(cfg, lp, h)
+        elif fam == "hybrid":
+            shared = params["shared_attn"]
+            for g, glp in enumerate(_layers(params)):
+                for j in range(cfg.ssm.attn_period):
+                    lp = _index(glp, j)
+                    y, st, cst = mamba2_apply(lp["mamba"],
+                                              rmsnorm(lp["ln"], h), cfg.ssm)
+                    h = h + y
+                    cache["ssm"][g, j], cache["conv"][g, j] = st, cst
+                h, k, v = attn_block(shared["attn"], shared["ln1"], h)
+                cache["k"][g, :, :s], cache["v"][g, :, :s] = k, v
+                h = _ffn(cfg, shared, h)
+        elif fam == "ssm":
+            for i, lp in enumerate(_layers(params)):
+                y, mst = xl.mlstm_apply(lp["mlstm"], rmsnorm(lp["m_ln"], h),
+                                        cfg.n_heads, chunk=cfg.xlstm.chunk)
+                h = h + y
+                y, sst = xl.slstm_apply(lp["slstm"], rmsnorm(lp["s_ln"], h))
+                h = h + y
+                for name, t in zip(("C", "n", "m", "sc", "sn", "sm", "sh"),
+                                   mst + sst):
+                    cache[name][i] = t
+        else:                                   # encdec
+            sm = memory.shape[1]
+            for i, lp in enumerate(_layers(params)):
+                h, k, v = attn_block(lp["self_attn"], lp["ln1"], h)
+                cache["k"][i, :, :s], cache["v"][i, :, :s] = k, v
+                a, (ck, cv) = attention_apply(
+                    lp["cross_attn"], rmsnorm(lp["ln_x"], h), cfg,
+                    memory=memory, kv_out=True)
+                h = h + a
+                cache["ck"][i, :, :sm], cache["cv"][i, :, :sm] = ck, cv
+                h = h + mlp_apply(lp["mlp"], rmsnorm(lp["ln2"], h))
+            cache["enc_len"].fill_(sm)
+        cache["len"].fill_(s)
         return _logits(cfg, params, h[:, -1]), cache
     return f
 
@@ -180,9 +406,9 @@ def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
     Sequences own non-contiguous pages through per-sequence block tables
     (kept host-side by the engine); ``chunk_prefill_fn`` output is written
     into pages and ``paged_decode_fn`` appends + attends through the
-    tables.
+    tables.  Attention families only (dense/vlm).
     """
-    _check_dense(cfg, "init_paged_cache")
+    _attention_family(cfg, "paged cache")
     device = resolve_device(device)
     shape = (cfg.n_layers, n_pages, page_size, cfg.n_kv_heads,
              cfg.resolved_head_dim)
@@ -190,14 +416,13 @@ def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
             "vp": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
 
 
-def _prefix_prefill(cfg, params, tokens, prefix_k, prefix_v, last: int,
+def _prefix_prefill(cfg, params, h, prefix_k, prefix_v, last: int,
                     kv_len: int | None):
     """Shared body of ``chunk_prefill_fn`` and ``prefill_from_cache``:
     (logits at position ``last``, full-context K, V stacked over layers)."""
-    h = embed(params["embed"], tokens)
     p_len = prefix_k.shape[2]
     ks, vs = [], []
-    for i, lp in enumerate(_layers(params, cfg.n_layers)):
+    for i, lp in enumerate(_layers(params)):
         a, (k, v) = attention_apply(lp["attn"], rmsnorm(lp["ln1"], h), cfg,
                                     kv_out=True,
                                     prefix_kv=(prefix_k[i], prefix_v[i]),
@@ -222,13 +447,14 @@ def chunk_prefill_fn(cfg: ModelConfig):
     trailing pad tokens sit after every real one, so the causal mask hides
     them from the real tokens, and ``last`` picks the last real position.
     """
-    _check_dense(cfg, "chunk_prefill_fn")
+    _attention_family(cfg, "chunked prefill")
 
     def f(params, tokens, prefix_k, prefix_v, last: int = -1,
           kv_len: int | None = None):
         p_len = prefix_k.shape[2]
-        logits, ks, vs = _prefix_prefill(cfg, params, tokens, prefix_k,
-                                         prefix_v, last, kv_len)
+        logits, ks, vs = _prefix_prefill(cfg, params,
+                                         embed(params["embed"], tokens),
+                                         prefix_k, prefix_v, last, kv_len)
         return logits, ks[:, :, p_len:], vs[:, :, p_len:]
     return f
 
@@ -243,7 +469,7 @@ def paged_decode_fn(cfg: ModelConfig):
     page ``tables[b, len // PS]`` slot ``len % PS`` *before* attending over
     ``len + 1`` positions through the block tables, in place.
     """
-    _check_dense(cfg, "paged_decode_fn")
+    _attention_family(cfg, "paged decode")
     if cfg.sliding_window:
         raise ValueError("paged decode does not support sliding windows")
     hd = cfg.resolved_head_dim
@@ -258,7 +484,7 @@ def paged_decode_fn(cfg: ModelConfig):
         page = tables[rows, (lens // ps).long()].long()      # (B,)
         slot = (lens % ps).long()
         lens1 = (lens + 1).to(torch.int32)
-        for i, lp in enumerate(_layers(params, cfg.n_layers)):
+        for i, lp in enumerate(_layers(params)):
             at = lp["attn"]
             xn = rmsnorm(lp["ln1"], h)
             q = apply_rope(dense(at["wq"], xn).reshape(b, 1, h_, hd),
@@ -281,21 +507,22 @@ def prefill_from_cache(cfg: ModelConfig):
     """Returns f(params, batch, prefix_k, prefix_v, max_len) -> (logits, cache).
 
     Prefill that attaches to a cached prompt prefix: ``batch["tokens"]``
-    holds only the uncached suffix (B, S); ``prefix_k``/``prefix_v`` are
-    (L, B, P, Hkv, hd) KV for the first P prompt tokens (RoPE already
-    applied).  The returned cache covers the full P+S context so
-    ``decode_fn`` continues identically to a cold prefill.
+    (or ``batch["embeds"]`` for vlm) holds only the uncached suffix (B, S);
+    ``prefix_k``/``prefix_v`` are (L, B, P, Hkv, hd) KV for the first P
+    prompt tokens (RoPE already applied).  The returned cache covers the
+    full P+S context so ``decode_fn`` continues identically to a cold
+    prefill.  Sequence-local attention families only (dense/vlm).
     """
-    _check_dense(cfg, "prefill_from_cache")
+    _attention_family(cfg, "prefix-cached prefill")
 
     def f(params, batch, prefix_k, prefix_v, max_len: int):
-        tokens = batch["tokens"]
-        b, s = tokens.shape
+        h = _inputs(cfg, params, batch)
+        b, s = h.shape[0], h.shape[1]
         p_len = prefix_k.shape[2]
-        logits, ks, vs = _prefix_prefill(cfg, params, tokens, prefix_k,
-                                         prefix_v, -1, None)
-        cache = {"k": _pad_kv(ks, max_len), "v": _pad_kv(vs, max_len),
-                 "len": torch.full((b,), p_len + s, dtype=torch.int32,
-                                   device=tokens.device)}
+        logits, ks, vs = _prefix_prefill(cfg, params, h, prefix_k, prefix_v,
+                                         -1, None)
+        cache = init_cache(cfg, b, max_len, h.device, h.dtype)
+        cache["k"][:, :, :p_len + s], cache["v"][:, :, :p_len + s] = ks, vs
+        cache["len"].fill_(p_len + s)
         return logits, cache
     return f

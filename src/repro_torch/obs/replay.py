@@ -25,7 +25,10 @@ suffix and the report says so (``events_truncated``).
 
 Module scope is stdlib-only; simulator machinery is imported lazily.
 
-A copy of ``repro.obs.replay`` for the port, unchanged but for this line.
+A copy of ``repro.obs.replay`` for the port, unchanged but for this line
+and one repair: ``stage_stats`` counts a ``served_at_ingest`` event (a
+result-cache hit) as completed, as the engine's ``completed`` counter does,
+so a replay's completed counter compares like with like.
 """
 
 from __future__ import annotations
@@ -169,6 +172,10 @@ def stage_stats(events) -> dict:
             on_time += int(bool(e.get("on_time")))
             if "latency" in e:
                 lats.append(e["latency"])
+        elif kind == "served_at_ingest":
+            # a result-cache hit: answered at ingest, with no ``complete``
+            # event, and counted completed by the engine
+            completed += 1
         elif kind == "drop":
             dropped += 1
     return {"stage_means": {"wait": fmean(waits) if waits else 0.0,

@@ -212,30 +212,49 @@ class ProcessingUnit:
         self.machine = (spec.build_machine(uid) if spec is not None
                         else Machine(mid=uid, mtype=DEFAULT_MTYPE,
                                      speed=speed, queue_size=4))
+        if model_cfg.family == "encdec":
+            raise ValueError("an engine request carries tokens only, and "
+                             "family encdec needs enc_embeds")
+        #: the attention families prefill at one fixed shape through
+        #: ``chunk_prefill_fn``; every other family prefills the prompt at
+        #: its own length with ``prefill_fn`` (as the JAX unit does): pad
+        #: tokens would enter a recurrent state or the MoE capacity
+        self._fixed_shape = model_cfg.family in ("dense", "vlm")
         if shared_fns is not None:
             # warm start: reuse the engine's step functions (the paper's
             # warm container)
-            self._chunk, self._decode = shared_fns
+            self._prefill_step, self._decode = shared_fns
         else:
-            self._chunk = T.chunk_prefill_fn(model_cfg)
+            self._prefill_step = (T.chunk_prefill_fn(model_cfg)
+                                  if self._fixed_shape
+                                  else T.prefill_fn(model_cfg))
             self._decode = T.decode_fn(model_cfg)
         self.warm = False
 
     @property
     def fns(self):
-        return (self._chunk, self._decode)
+        return (self._prefill_step, self._decode)
 
     def warmup(self, prompt_len: int = 16, buckets=(1,)) -> float:
-        """Run prefill+decode once per batch bucket (the cold start: it
-        builds the kernels and warms the allocator)."""
+        """Run one whole ``execute`` per batch bucket (the cold start: it
+        builds the kernels and warms the allocator): the prefill, two
+        decode steps, the greedy and (in buckets above 1) sampled token
+        picks, the log-softmax, the result path and the host copy of the
+        prompt's KV that the prefix cache's insert makes.  It leaves no
+        trace: its requests and its sampling stream are its own, and
+        nothing of the engine (counters, caches, estimator, telemetry)
+        sees them."""
         t0 = time.perf_counter()
+        plen = max(1, min(prompt_len, self.max_len - 2))
+        rng = np.random.default_rng(0)
         for b in buckets:
-            logits, cache = self._prefill(
-                (0,) * min(prompt_len, self.max_len - 1), b)
-            self._decode(self.params, cache,
-                         torch.zeros((b,), dtype=torch.long,
-                                     device=self.device))
-            _sync(self.device)
+            reqs = [Request(prompt=(0,) * plen, n_new=2,
+                            temperature=0.7 if 0 < i == b - 1 else 0.0)
+                    for i in range(b)]
+            _, cache = self.execute(None, reqs, rng, buckets=(b,))
+            if "k" in cache:
+                cache["k"][:, 0, :plen].cpu()
+                cache["v"][:, 0, :plen].cpu()
         self.warm = True
         return time.perf_counter() - t0
 
@@ -243,6 +262,8 @@ class ProcessingUnit:
         """Prefill ``bucket`` copies of ``prompt`` into a contiguous cache
         of ``max_len`` positions; returns (last-token logits, cache).
 
+        A unit of a recurrent, MoE or hybrid model prefills the prompt at
+        its own length (``prefill_fn``).  For the attention families
         ``prefix=(pk, pv)`` (L, P, Hkv, hd) holds the KV of the first P
         prompt tokens: only the rest is prefilled, attached to it.  Every
         prefill has one shape per unit, whatever P and the prompt length:
@@ -253,6 +274,14 @@ class ProcessingUnit:
         prompt's tokens are the same whether or not its prefix came from
         the cache."""
         mc, dev, cap = self.cfg, self.device, self.max_len
+        if not self._fixed_shape:
+            if prefix is not None or not 1 <= len(prompt) <= cap:
+                raise ValueError(f"a {mc.family} unit prefills a whole "
+                                 f"prompt of 1 to max_len {cap} tokens")
+            toks = torch.as_tensor(np.asarray(prompt, np.int64))
+            return self._prefill_step(
+                self.params, {"tokens": toks.to(dev)[None].expand(bucket, -1)},
+                cap)
         if prefix is None:
             pk = pv = torch.zeros((mc.n_layers, 0, mc.n_kv_heads,
                                    mc.resolved_head_dim), dtype=torch.bfloat16)
@@ -270,8 +299,8 @@ class ProcessingUnit:
             (pk.shape[0], bucket) + tuple(pk.shape[1:]))
         pvb = pv.to(dev)[:, None].expand(
             (pv.shape[0], bucket) + tuple(pv.shape[1:]))
-        logits, kn, vn = self._chunk(self.params, toks.to(dev), pkb, pvb,
-                                     last=n - 1, kv_len=2 * cap)
+        logits, kn, vn = self._prefill_step(self.params, toks.to(dev), pkb,
+                                            pvb, last=n - 1, kv_len=2 * cap)
         pad = (0, 0, 0, 0, 0, cap - plen - n)
         cache = {"k": F.pad(torch.cat([pkb, kn[:, :, :n]], dim=2), pad),
                  "v": F.pad(torch.cat([pvb, vn[:, :, :n]], dim=2), pad),
@@ -689,7 +718,8 @@ class EngineConfig:
     # ``batching.max_batch`` sequences under a per-step token budget —
     # chunked prefills coexist with batched paged decodes instead of
     # head-of-line blocking them.  None keeps the run-to-completion path
-    # (and every existing trace) bit-identical.
+    # (and every existing trace) bit-identical.  Dense and vlm only: the
+    # paged arena refuses every other family, as the JAX unit runner's does.
     batching: StepBatchingConfig | None = None
     # prefill/decode disaggregation (DESIGN.md §2.13): the KV transfer
     # pricing used for handoff scheduling when the fleet declares phase

@@ -40,6 +40,17 @@ def test_serve_cli():
     assert stats["batching"] is None
 
 
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "xlstm-125m"])
+def test_serve_cli_any_registered_arch(arch):
+    """``--arch`` takes every registered id, reduced as the JAX launcher
+    reduces it (``reduced()`` at 2 layers): a moe and an xLSTM model serve
+    one task at a time (every family's unit: ``test_torch_engine.py``)."""
+    stats = json.loads(_serve(["--arch", arch, "--requests", "6",
+                               "--units", "1", "--rate", "0.5"]))
+    assert stats["completed"] + stats["dropped"] == 6
+    assert stats["completed"] > 0
+
+
 def test_serve_cli_batching():
     out = _serve(["--requests", "10", "--units", "1", "--rate", "0.5",
                   "--max-batch", "4", "--step-token-budget", "32"])

@@ -14,7 +14,10 @@ that cross its granule and rank boundaries and at one shape for every
 rtol 4e-3: the kernels round their output to bf16); the engine's batched
 greedy tokens must equal its one-at-a-time tokens through the kernels, and
 the one-at-a-time path behind the Router keeps its tokens with the prefix
-cache on or off.  RMSNorm is held at every instantiation of its kernel
+cache on or off.  The decode kernel is also held at every registered
+arch's (G, Hkv, hd) and at an enc-dec cross-attention shorter than its
+cache, and every family's reduced model on the card against the same
+weights on the host.  RMSNorm is held at every instantiation of its kernel
 (the library reports which one a width takes), the PMF convolution up to
 the longest row it takes, and its front door against the chance of success
 it stands for.  The merge-saving MLP trained on the card predicts as the
@@ -199,6 +202,109 @@ def test_paged_attention_kernel_every_shape(cuda, group, hkv, hd, ps):
         got.float(), paged_decode_attention_split_ref(*_f32(*args)),
         atol=1e-4, rtol=4e-3)
     assert torch.equal(got[0], torch.zeros_like(got[0]))
+
+
+#: (G, Hkv, hd) of every registered arch's decode attention, at its kv
+#: heads: llava, yi, smollm, qwen, llama3, seamless (self and cross),
+#: zamba2, deepseek, llama4 (``chip_smoke.family_attention_shapes``)
+FAMILY_SHAPES = [(7, 8, 128), (8, 4, 128), (3, 5, 64), (1, 20, 128),
+                 (4, 8, 128), (1, 16, 64), (1, 32, 80), (1, 16, 128),
+                 (5, 8, 128)]
+
+
+@pytest.mark.parametrize("group,hkv,hd", FAMILY_SHAPES)
+@pytest.mark.parametrize("b", [1, 8])
+def test_decode_attention_at_every_served_shape(cuda, group, hkv, hd, b):
+    """The one-at-a-time path's decode shapes of every family (38-50 keys
+    of a 64-key cache, buckets 1 and 8), against the split model and the
+    plain version on the f32 inputs (atol 1e-4 / rtol 4e-3), and the
+    layer's bf16 plain version (1e-2)."""
+    q, k, v, ln = _contiguous(cuda, b, 64, h=group * hkv, hkv=hkv, hd=hd,
+                              seed=group * hd + b, lo=38)
+    ln = torch.clamp(ln, max=50)
+    got = decode_attention_cuda(q, k, v, ln)
+    for want in (decode_attention_split_ref(*_f32(q, k, v, ln)),
+                 decode_attention_ref(*_f32(q, k, v, ln))):
+        torch.testing.assert_close(got.float(), want, atol=1e-4, rtol=4e-3)
+    torch.testing.assert_close(got.float(), L.decode_attention_plain(
+        q, k, v, ln).float(), atol=1e-2, rtol=1e-2)
+
+
+def test_cross_attention_below_the_cache_width(cuda):
+    """Enc-dec cross-attention: 8 encoder frames in a 64-key cache (the
+    decode step's ``enc_len``), through the model's ``decode_attention``;
+    the keys past the frames are never read."""
+    q, k, v, _ = _contiguous(cuda, 2, 64, h=16, hkv=16, hd=64, seed=77)
+    ln = torch.full((2,), 8, dtype=torch.int32, device=cuda)
+    reset_launch_counts()
+    got = L.decode_attention(q, k, v, ln)
+    assert launch_counts()["decode_attention"] == 1
+    torch.testing.assert_close(
+        got.float(), decode_attention_ref(*_f32(q, k[:, :8], v[:, :8], ln)),
+        atol=1e-4, rtol=4e-3)
+    k[:, 8:], v[:, 8:] = 99.0, -99.0
+    assert torch.equal(L.decode_attention(q, k, v, ln), got)
+
+
+@pytest.mark.parametrize("name", ["smollm-360m", "llava-next-34b",
+                                  "deepseek-moe-16b",
+                                  "llama4-maverick-400b-a17b", "zamba2-2.7b",
+                                  "xlstm-125m", "seamless-m4t-medium"])
+def test_reduced_family_on_the_card_as_on_the_host(cuda, name):
+    """The reduced config with the same weights on the card and on the
+    host: prefill and 8 greedy decode steps on the card, the host fed the
+    card's tokens.  Logits within the larger of 5e-2 and the host's own
+    movement under one bf16 ulp on the embedding table; the card's greedy
+    token is the host's wherever the host's top-2 margin exceeds twice
+    that (``chip_smoke.card_vs_cpu``)."""
+    cfg = get_arch(name).reduced()
+    host = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    emb = host["embed"]["emb"]
+    sign = torch.where(torch.rand(emb.shape, generator=torch.Generator()
+                                  .manual_seed(1)) < 0.5, -1.0, 1.0)
+    moved = dict(host, embed={"emb": (emb.float() * (1 + sign * 2.0 ** -8))
+                              .to(emb.dtype)})
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        1, cfg.vocab, (1, 38)))
+
+    def batch(p, dev):
+        if cfg.family == "encdec":
+            enc = torch.randn((1, 8, cfg.d_model),
+                              generator=torch.Generator().manual_seed(3))
+            return {"tokens": toks.to(dev),
+                    "enc_embeds": enc.to(torch.bfloat16).to(dev)}
+        if not cfg.embed_inputs:
+            return {"embeds": L.embed(p["embed"], toks.to(dev))}
+        return {"tokens": toks.to(dev)}
+
+    def run(p, dev, feed=None):
+        logits, cache = T.prefill_fn(cfg)(p, batch(p, dev), 64)
+        out, fed = [logits.float().cpu()], []
+        for i in range(8):
+            cur = logits.argmax(-1) if feed is None else feed[i].to(dev)
+            fed.append(cur.cpu())
+            logits, cache = T.decode_fn(cfg)(p, cache, cur)
+            out.append(logits.float().cpu())
+        return out, fed
+
+    card, fed = run(_to(host, cuda), cuda)
+    want, _ = run(host, "cpu", fed)
+    ref, _ = run(moved, "cpu", fed)
+    for lc, lh, lr in zip(card, want, ref):
+        assert torch.isfinite(lc).all()
+        tol = max(5e-2, float((lr - lh).abs().max()))
+        torch.testing.assert_close(lc, lh, atol=tol, rtol=tol)
+        pick, best = int(lc.argmax()), int(lh.argmax())
+        top2 = torch.topk(lh[0], 2).values
+        if float(top2[0] - top2[1]) > 2 * tol:
+            assert pick == best
+        assert float(lh[0, best] - lh[0, pick]) <= 2 * tol
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
 
 
 @pytest.mark.parametrize("length", BOUNDARY_LENGTHS)
@@ -464,9 +570,12 @@ def test_pmf_conv_kernel(cuda, n, le, lc):
     pct = rng.random((n, lc)).astype(np.float32)
     pct /= pct.sum(axis=1, keepdims=True)
     dl = rng.integers(-2, le + lc + 2, n).astype(np.float32)
-    args = [torch.from_numpy(a).to(cuda) for a in (pet, pct, dl)]
-    for got, want in zip(pmf_conv_cuda(*args), pmf_conv_ref(*args)):
-        torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-5)
+    # the PEND cut at the success index, and apart from it
+    cut = dl + rng.integers(-3, 4, n).astype(np.float32)
+    args = [torch.from_numpy(a).to(cuda) for a in (pet, pct, dl, cut)]
+    for call in (args[:3], args):
+        for got, want in zip(pmf_conv_cuda(*call), pmf_conv_ref(*call)):
+            torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-5)
 
 
 def test_pmf_conv_longest_row(cuda):
@@ -495,9 +604,9 @@ def test_pmf_conv_longest_row(cuda):
 
 def test_batched_success_on_the_card(cuda):
     """The front door on the card (one buffer up, the chances back) against
-    its plain version on the host and against ``chance_of_success`` less
-    the one term the front door's single deadline index drops,
-    ``pet[0] * pct(dl - pet_off)`` (``test_torch_kernels.py``,
+    its plain version on the host and against ``chance_of_success``: its
+    two indices per row keep the term ``pet[0] * pct(dl - pet_off)`` that
+    the JAX front door drops (``test_torch_kernels.py``,
     ``test_packed_success_with_filler_rows``)."""
     rng = np.random.default_rng(7)
     specs = [(rng.uniform(4, 30), rng.uniform(1, 5), rng.uniform(5, 60),
@@ -514,12 +623,7 @@ def test_batched_success_on_the_card(cuda):
         got, batched_success(pets, pcts, dls, length=64, device="cpu"),
         atol=1e-6)
 
-    def at(pmf, t):
-        i = t - pmf.offset
-        return float(pmf.values[i]) if 0 <= i < len(pmf.values) else 0.0
-
     want = [chance_of_success(e, c, dl, droppable_prev=True)
-            - e.values[0] * at(c, dl - e.offset)
             for e, c, dl in zip(pets, pcts, dls)]
     np.testing.assert_allclose(got, want, atol=1e-5)
 

@@ -27,6 +27,7 @@ from repro_torch.core.pruning import PruningConfig
 from repro_torch.core.simulation import PETOracle
 from repro_torch.core.tasks import PETMatrix
 from repro_torch.models import transformer as T
+from repro_torch.obs import Telemetry
 from repro_torch.serving.autoscale import ElasticityConfig
 from repro_torch.serving.batching import StepBatchingConfig
 from repro_torch.serving.engine import (EngineConfig, Request, ServingEngine,
@@ -185,6 +186,129 @@ class TestTokenIdentity:
         }
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             calls[entry]()
+
+
+    def test_warmup_runs_whole_executes_and_leaves_no_trace(self,
+                                                            tiny_model,
+                                                            monkeypatch):
+        """The warm-up runs one whole ``execute`` per bucket (prefill,
+        decode, token picks, log-softmax, results) and leaves nothing
+        behind: no request counted, no prefix-cache entry, no telemetry
+        event or metric, no estimator cell, the engine's sampling stream
+        untouched."""
+        cfg, params = tiny_model
+        eng = ServingEngine(cfg, params, EngineConfig(
+            n_units=1, elasticity=None, max_len=96,
+            batch_buckets=(1, 2, 4)), device="cpu")
+        tel = Telemetry()
+        eng.attach_telemetry(tel)
+        unit = eng.units[0]
+        cache = eng.kvcaches[unit.machine.mid]
+        stats = eng.collect_stats()
+        kv_stats, ewma = dict(cache.stats), dict(eng.estimator._ewma)
+        rng_state = eng._rng.bit_generator.state
+        seen = []
+        execute = unit.execute
+
+        def spy(task, reqs, rng, buckets=(1, 2, 4, 8), prefix=None):
+            out = execute(task, reqs, rng, buckets=buckets, prefix=prefix)
+            seen.append((len(reqs), [len(r.tokens) for r in reqs]))
+            return out
+        monkeypatch.setattr(unit, "execute", spy)
+        assert unit.warmup(buckets=(1, 2, 4)) > 0
+        assert seen == [(1, [2]), (2, [2, 2]), (4, [2, 2, 2, 2])]
+        assert eng.collect_stats() == stats
+        assert stats["completed"] == stats["executions"] == 0
+        assert dict(cache.stats) == kv_stats and cache.pool.n_used == 0
+        assert eng.estimator._ewma == ewma == {}
+        assert eng._rng.bit_generator.state == rng_state
+        assert tel.events == [] and tel.metrics.snapshot() == \
+            Telemetry().metrics.snapshot()
+
+
+# ---------------------------------------------------------------------------
+# the other families: one request (or merged task) at a time
+# ---------------------------------------------------------------------------
+
+FAMILY_TINY = dict(d_model=64, n_heads=2, n_kv_heads=2, head_dim=32,
+                   remat=False)
+STATEFUL = ["deepseek-moe-16b", "llama4-maverick-400b-a17b", "zamba2-2.7b",
+            "xlstm-125m"]
+
+
+@pytest.fixture(scope="module")
+def family_models():
+    out = {}
+    for name in STATEFUL + ["llava-next-34b", "seamless-m4t-medium"]:
+        cfg = get_arch(name).reduced().scaled(**FAMILY_TINY)
+        out[name] = (cfg, T.init_params(
+            cfg, torch.Generator().manual_seed(0), "cpu"))
+    return out
+
+
+class TestFamilies:
+    @pytest.mark.parametrize("name", STATEFUL)
+    def test_served_alone_equals_a_direct_greedy_run(self, family_models,
+                                                     name):
+        """moe, hybrid and xLSTM units prefill each prompt at its own
+        length (``prefill_fn``), with the prefix cache off; a request
+        served alone (bucket 1) gets the tokens of a direct
+        ``prefill_fn`` + ``decode_fn`` greedy run at the unit's shapes."""
+        cfg, params = family_models[name]
+        eng = ServingEngine(cfg, params, EngineConfig(
+            n_units=1, elasticity=None, merging="none", pruning=None,
+            result_cache=False, max_len=48, batch_buckets=(1, 2),
+            prefix_cache=True), device="cpu")
+        assert eng.kvcache is None and not eng.kvcaches
+        prompts = _prompts(4, seed=11, lo=3, hi=30)
+        reqs = [Request(prompt=p, n_new=3, deadline=1e9) for p in prompts]
+        stats = eng.run([(100.0 * i, r) for i, r in enumerate(reqs)])
+        assert stats["completed"] == len(reqs)
+        pre, dec = T.prefill_fn(cfg), T.decode_fn(cfg)
+        for r in reqs:
+            logits, cache = pre(params, {"tokens": torch.tensor([r.prompt])},
+                                48)
+            want = []
+            for _ in range(3):
+                cur = logits.argmax(-1)
+                want.append(int(cur[0]))
+                logits, cache = dec(params, cache, cur)
+            assert r.tokens == want
+
+    def test_vlm_serves_tokens_through_the_fixed_shape_route(
+            self, family_models):
+        """vlm units take the dense route (``chunk_prefill_fn`` on embedded
+        tokens, the prefix cache on), as the JAX unit serves vlm."""
+        cfg, params = family_models["llava-next-34b"]
+        rng = np.random.default_rng(3)
+        sys_p = tuple(int(x) for x in rng.integers(1, 127, 32))
+        reqs = [Request(prompt=sys_p + (40 + i, 41 + i), n_new=2,
+                        deadline=1e9) for i in range(3)]
+        eng = ServingEngine(cfg, params, _engine_cfg(None), device="cpu")
+        stats = eng.run([(50.0 * i, r) for i, r in enumerate(reqs)])
+        assert stats["completed"] == 3 and stats["prefix_hits"] == 2
+        assert all(len(r.tokens) == 2 for r in reqs)
+
+    @pytest.mark.parametrize("name", ["deepseek-moe-16b", "zamba2-2.7b",
+                                      "xlstm-125m"])
+    def test_step_batching_refuses_as_jax_does(self, family_models, name):
+        """Continuous batching needs the paged arena, which these families
+        do not have: the unit runner fails on ``init_paged_cache`` with the
+        JAX words."""
+        cfg, params = family_models[name]
+        jcfg = JAX_ARCHS[name].reduced()
+        with pytest.raises(ValueError) as theirs:
+            JT.init_paged_cache(jcfg, 3, 4)
+        with pytest.raises(ValueError, match="paged cache unsupported") \
+                as ours:
+            ServingEngine(cfg, params, _engine_cfg(
+                StepBatchingConfig(max_batch=2)), device="cpu")
+        assert str(ours.value) == str(theirs.value)
+
+    def test_encdec_needs_encoder_frames(self, family_models):
+        cfg, params = family_models["seamless-m4t-medium"]
+        with pytest.raises(ValueError, match="enc_embeds"):
+            ServingEngine(cfg, params, _engine_cfg(None), device="cpu")
 
 
 # ---------------------------------------------------------------------------

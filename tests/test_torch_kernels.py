@@ -76,6 +76,16 @@ def _pmf_data(n, le, lc, seed=0):
     return pet, pct, dl
 
 
+def _edge(pets, pcts, dls) -> np.ndarray:
+    """Per row, ``pet[0] * pct(dl - pet_off)``: the term of Procedure 2
+    that a single deadline index (the JAX front door's) drops."""
+    def at(pmf, t):
+        i = t - pmf.offset
+        return float(pmf.values[i]) if 0 <= i < len(pmf.values) else 0.0
+    return np.array([e.values[0] * at(c, dl - e.offset)
+                     for e, c, dl in zip(pets, pcts, dls)])
+
+
 class TestPmfConv:
     @pytest.mark.parametrize("n,le,lc", [(4, 8, 16), (16, 32, 32),
                                          (3, 5, 64), (9, 64, 128),
@@ -101,7 +111,9 @@ class TestPmfConv:
     def test_success_against_core_pmf(self):
         """The deadline-index algebra of ``batched_success``: held against
         ``chance_of_success`` (the port's copy and the JAX package's) and
-        against the JAX front door, not only against the ref."""
+        against the JAX front door plus the one term that front door's
+        single index drops (``test_packed_success_with_filler_rows``), not
+        only against the ref."""
         rng = np.random.default_rng(7)
         specs = [(rng.uniform(8, 30), rng.uniform(1, 5),
                   rng.uniform(10, 60), rng.uniform(2, 8),
@@ -120,8 +132,8 @@ class TestPmfConv:
                  for e, c, dl in zip(jpets, jpcts, dls)]
         np.testing.assert_allclose(got, jwant, atol=1e-5)
         np.testing.assert_allclose(
-            got, jax_batched_success(jpets, jpcts, dls, length=128),
-            atol=1e-6)
+            got, jax_batched_success(jpets, jpcts, dls, length=128)
+            + _edge(jpets, jpcts, dls), atol=1e-6)
 
     @staticmethod
     def _specs(n, seed):
@@ -139,12 +151,14 @@ class TestPmfConv:
         ``chance_of_success`` (the port's and the JAX package's); the filler
         rows themselves come out 0.
 
-        Both packages' front doors fold the two PMF offsets into one
-        deadline index, so the PEND cut falls at ``dl - pet_off`` where
-        Procedure 2 cuts at ``dl``: a previous task freeing the machine at
-        exactly ``dl - pet_off`` is dropped, and the success misses
-        ``pet[0] * pct(dl - pet_off)``.  PETs clipped at time 1 put real
-        mass on ``pet[0]``, so here that term is held exactly."""
+        The JAX front door folds the two PMF offsets into one deadline
+        index, so its PEND cut falls at ``dl - pet_off`` where Procedure 2
+        cuts at ``dl``: a previous task freeing the machine at exactly
+        ``dl - pet_off`` is dropped, and its success misses
+        ``pet[0] * pct(dl - pet_off)``.  The port's front door passes the
+        cut and the success index apart, so it equals ``chance_of_success``
+        and the JAX front door plus that term.  PETs clipped at time 1 put
+        real mass on ``pet[0]``, so here the term is held exactly."""
         specs, dls = self._specs(20, seed=21)
         pets = [TPMF.from_normal(m, s) for m, s, _, _, _ in specs]
         pcts = [TPMF.from_normal(m, s) for _, _, m, s, _ in specs]
@@ -152,23 +166,16 @@ class TestPmfConv:
         assert got.shape == (20,)
         jpets = [PMF.from_normal(m, s) for m, s, _, _, _ in specs]
         jpcts = [PMF.from_normal(m, s) for _, _, m, s, _ in specs]
-        np.testing.assert_allclose(
-            got, jax_kernel_success(jpets, jpcts, dls, 64, pad_to=32),
-            atol=1e-6)
-
-        def at(pmf, t):
-            i = t - pmf.offset
-            return float(pmf.values[i]) if 0 <= i < len(pmf.values) else 0.0
-
-        edge = np.array([e.values[0] * at(c, dl - e.offset)
-                         for e, c, dl in zip(pets, pcts, dls)])
+        edge = _edge(jpets, jpcts, dls)
         assert edge.max() > 1e-3
+        np.testing.assert_allclose(
+            got, jax_kernel_success(jpets, jpcts, dls, 64, pad_to=32) + edge,
+            atol=1e-6)
         for cos, pe, pc in ((t_chance_of_success, pets, pcts),
                             (chance_of_success, jpets, jpcts)):
             want = [cos(e, c, dl, droppable_prev=True)
                     for e, c, dl in zip(pe, pc, dls)]
-            np.testing.assert_allclose(got, np.asarray(want) - edge,
-                                       atol=1e-5)
+            np.testing.assert_allclose(got, want, atol=1e-5)
         filler = [TPMF.impulse(0)] * 12
         full = batched_success(pets + filler, pcts + filler, dls + [-1] * 12,
                                length=64, device="cpu")
@@ -176,32 +183,36 @@ class TestPmfConv:
         np.testing.assert_array_equal(full[:20], got)
 
     def test_packed_inputs_are_one_buffer(self, monkeypatch):
-        """pet, pct and the deadline indices reach the kernel as three
-        contiguous views of one buffer (one copy to the device), in that
-        order, and give the bits of three separately built inputs."""
+        """pet, pct, the success indices and the cut indices reach the
+        kernel as four contiguous views of one buffer (one copy to the
+        device), in that order, and give the bits of four separately built
+        inputs."""
         specs, dls = self._specs(7, seed=22)
         pets = [TPMF.from_normal(m, s) for m, s, _, _, _ in specs]
         pcts = [TPMF.from_normal(m, s) for _, _, m, s, _ in specs]
         seen = []
 
-        def spy(pet, pct, dl):
-            seen.append((pet, pct, dl))
-            return pmf_conv(pet, pct, dl)
+        def spy(pet, pct, dl, cut):
+            seen.append((pet, pct, dl, cut))
+            return pmf_conv(pet, pct, dl, cut)
 
         monkeypatch.setattr(pmf_ops, "pmf_conv", spy)
         got = batched_success(pets, pcts, dls, length=64, device="cpu")
-        (pet, pct, dl), = seen
+        (pet, pct, dl, cut), = seen
         base = pet.untyped_storage().data_ptr()
-        assert pct.untyped_storage().data_ptr() == base
-        assert dl.untyped_storage().data_ptr() == base
+        for t in (pct, dl, cut):
+            assert t.untyped_storage().data_ptr() == base
         assert (pet.storage_offset(), pct.storage_offset(),
-                dl.storage_offset()) == (0, 7 * 64, 2 * 7 * 64)
-        assert all(t.is_contiguous() for t in (pet, pct, dl))
+                dl.storage_offset(), cut.storage_offset()) == \
+            (0, 7 * 64, 2 * 7 * 64, 2 * 7 * 64 + 7)
+        assert all(t.is_contiguous() for t in (pet, pct, dl, cut))
         pet_v, pet_o = pack_pmfs(pets, 64)
         pct_v, pct_o = pack_pmfs(pcts, 64)
         dl_k = np.maximum(np.asarray(dls) - pet_o - pct_o, -1)
+        cut_k = np.maximum(np.asarray(dls) - pct_o, -1)
         _, want = pmf_conv(torch.from_numpy(pet_v), torch.from_numpy(pct_v),
-                           torch.from_numpy(dl_k.astype(np.float32)))
+                           torch.from_numpy(dl_k.astype(np.float32)),
+                           torch.from_numpy(cut_k.astype(np.float32)))
         np.testing.assert_array_equal(got, want.numpy())
 
     def test_batched_success_defaults_to_cuda(self):

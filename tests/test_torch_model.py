@@ -9,6 +9,8 @@ fused silu*up in one, two in the other), so the two frameworks agree to a
 few bf16 ulps, not bit for bit.  Greedy tokens must be equal.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import ml_dtypes
@@ -16,11 +18,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs.registry import ARCHS as JAX_ARCHS
 from repro.configs.registry import get_arch as jax_get_arch
 from repro.models import layers as JL
 from repro.models import transformer as JT
 from repro_torch.bridge import params_from_jax, to_tensor
-from repro_torch.configs.registry import get_arch
+from repro_torch.configs.registry import ARCHS, get_arch
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
@@ -79,8 +82,16 @@ def test_bridge_is_bit_exact(model):
 
 
 def test_configs_are_the_same(model):
+    """The test model's config, and every registered arch's at full width
+    and reduced (sub-configs compared field by field: they are the two
+    packages' own dataclasses)."""
     cfg, jcfg, _, _ = model
     assert cfg.__dict__ == jcfg.__dict__
+    assert sorted(ARCHS) == sorted(JAX_ARCHS)
+    for name, full in JAX_ARCHS.items():
+        for a, b in ((get_arch(name), full),
+                     (get_arch(name).reduced(), full.reduced())):
+            assert dataclasses.asdict(a) == dataclasses.asdict(b), name
 
 
 def test_torch_init_matches_jax_shapes_and_dtypes(model):
@@ -320,6 +331,8 @@ class TestServingFns:
         assert changed.sum() == b * cfg.n_layers
 
     def test_family_guard(self, model):
+        """The paged path refuses what JAX's refuses, in its words."""
         cfg = model[0]
-        with pytest.raises(ValueError, match="dense family"):
+        with pytest.raises(ValueError,
+                           match="paged decode unsupported for family moe"):
             T.paged_decode_fn(cfg.scaled(family="moe"))

@@ -12,7 +12,10 @@ package's on the same record.
   JAX one on the same trace, and on one record (JSON round-tripped) the
   port's ``fit_table``, ``fit_oracle(...).summary()`` and ``drift_report``
   are ``==`` to the JAX package's — exact, since both are pure Python over
-  copies of the same simulator.
+  copies of the same simulator.  One stated difference: the port's replay
+  counts a result-cache hit (``served_at_ingest``) as completed, so on a
+  record with such hits the two reports differ in ``counters.completed``
+  alone, by exactly the replay's number of them.
 """
 
 import json
@@ -36,6 +39,7 @@ from repro_torch.core.simulation import PETOracle
 from repro_torch.core.tasks import PETMatrix
 from repro_torch.obs import (FlightRecorder, drift_report, fit_oracle,
                              fit_table, validate_drift_report)
+from repro_torch.obs.replay import replay_record
 from repro_torch.serving.engine import EngineConfig, Request, ServingEngine
 
 
@@ -71,7 +75,7 @@ CALM_CFG = dict(heuristic="EDF", merging="none", position_finder=None,
 
 
 def _record_run(trace, cfg_kw=MERGE_CFG, n_units=1, capacity=1 << 15,
-                jax=False):
+                jax=False, result_cache=False):
     """One recorded stub-engine run of either package: the serve-CLI
     wiring in miniature."""
     Rec, Eng, Cfg, PM, PO = (
@@ -85,7 +89,8 @@ def _record_run(trace, cfg_kw=MERGE_CFG, n_units=1, capacity=1 << 15,
     if jax and kw.get("pruning") is not None:
         kw["pruning"] = JaxPruningConfig(**vars(kw["pruning"]))
     eng = Eng(None, None, Cfg(n_units=n_units, elasticity=None,
-                              result_cache=False, prefix_cache=False, **kw),
+                              result_cache=result_cache, prefix_cache=False,
+                              **kw),
               stub_oracle=PO(_pet(PM), seed=11),
               **({} if jax else {"device": "cpu"}))
     eng.attach_telemetry(rec)
@@ -222,3 +227,37 @@ def test_same_record_same_fit_and_drift(cfg_kw, n_units, trace_kw):
                         control=True) == \
         jax_drift_report(record, oracle=JaxPETOracle(_pet(JaxPETMatrix),
                                                      seed=11), control=True)
+
+
+def test_result_cache_hits_count_as_completed():
+    """A request answered from the result cache emits ``served_at_ingest``
+    and no ``complete``.  The port's replay counts it completed, as the
+    engine's counter does, so its report is the JAX package's ``==`` but
+    for ``counters.completed``, whose replayed value is higher by exactly
+    the replay's ``served_at_ingest`` events; under the recording's own
+    oracle the port's completed gap is then 0."""
+    trace = _request_trace(n=40, deadline=20.0, rate=2.0)
+    rec, _, stats = _record_run(trace, MERGE_CFG, result_cache=True)
+    record = _json_roundtrip(rec.to_artifact())
+    served = sum(e["kind"] == "served_at_ingest" for e in record["events"])
+    assert served > 0 and stats["cache_hits"] == served
+    for ours, theirs, orc in (
+            ({}, {}, None),
+            ({"oracle": PETOracle(_pet(), seed=11), "control": True},
+             {"oracle": JaxPETOracle(_pet(JaxPETMatrix), seed=11),
+              "control": True}, PETOracle(_pet(), seed=11))):
+        a, b = drift_report(record, **ours), jax_drift_report(record,
+                                                              **theirs)
+        validate_drift_report(a)
+        ca, cb = a.pop("counters"), b.pop("counters")
+        assert a == b
+        done_a, done_b = ca.pop("completed"), cb.pop("completed")
+        assert ca == cb
+        _, tel = replay_record(record, oracle=orc)
+        replayed = len(tel.events_of("served_at_ingest"))
+        assert replayed > 0
+        assert done_a["recorded"] == done_b["recorded"] == stats["completed"]
+        assert done_a["replayed"] - done_b["replayed"] == replayed
+        if orc is not None:
+            assert replayed == served
+            assert done_a["gap"] == 0 and done_b["gap"] == -served
