@@ -123,7 +123,35 @@ Phases (any failure exits non-zero and prints no result line):
      benchmark's three checks (reported); the MLP trained on the card and
      on the host from the same initial parameters must predict within
      ``MLP_CARD_ATOL``; its fit wall on each.
-8. Print tokens/s, decode-step walls, per-kernel launches and times, the
+8. Training on the card (the serving weights freed first):
+   * the RMSNorm backward kernel against its plain version
+     (``rmsnorm_bwd_ref``) in f32 and bf16 at a training step's rows
+     (8192, 960), a decode step's (8, 1, 960) and 3 rows of every width
+     ``check_width`` takes: dx at the forward's bar, dscale (a sum over
+     every row) within 2^-20 of each column's sum of |terms| plus what
+     moving 1 / rms by 2^-20 moves its bf16 terms by, plus one bf16 ulp;
+     two calls give the same bits.  Timed at (8192, 960) bf16 beside
+     its bound and ``torch.autograd.grad`` through ``F.rms_norm``;
+   * every reduced config's ``loss_fn`` and every gradient on the card
+     against the same weights and batch on the CPU (8 encoder frames for
+     enc-dec), within the larger of 5e-2 and the CPU's own movement under
+     one bf16 ulp on the embedding table (phase 5's rule; gradients
+     relative to their norm), printed per family;
+   * full-width smollm-360m (remat on) trained by ``python -m
+     repro_torch.launch.train --arch smollm-360m --steps 30 --batch 8
+     --seq 1024 --ckpt-every 30`` as a subprocess: exit 0, every logged
+     loss finite, the last below the first.  The same command in this
+     process, with the launch counters zeroed just before and read just
+     after: 129 ``rmsnorm`` launches a step (65 + 64 recomputed) and 65
+     ``rmsnorm_bwd``; its params and optimizer state equal the launcher's
+     restored final checkpoint bit for bit.  Printed: the median step wall
+     over steps 5-30, tokens/s, the device's busy share of 3 profiled
+     steps, peak ``max_memory_allocated``, and MFU as a reading (6 N
+     tokens / wall / 989 TFLOP/s, N without the embedding);
+   * the restart check at ``tests/test_substrate.py``'s tiny trainer: a
+     crash at step 4 resumes from step 3 and ends within 2e-2 of an
+     uninterrupted run (the max |diff| printed).
+9. Print tokens/s, decode-step walls, per-kernel launches and times, the
    kernel JSON line (with each kernel's back-to-back wall a call,
    ``wall_ms``), and last the device JSON line.
 """
@@ -132,6 +160,7 @@ from __future__ import annotations
 
 import ctypes
 import gc
+import itertools
 import json
 import os
 import re
@@ -1651,6 +1680,423 @@ def log_calibration(what: str, res: dict) -> None:
         f"reference's bound: {DRIFT_BOUND_PCT}%; reported, not checked)")
 
 
+# ---------------------------------------------------------------------------
+# phase 8: training on the card
+# ---------------------------------------------------------------------------
+
+#: the full-width training run, as a user types it (the checkpoint
+#: directory is added per run)
+TRAIN_STEPS = 30
+TRAIN_ARGV = ("--arch", "smollm-360m", "--steps", str(TRAIN_STEPS),
+              "--batch", "8", "--seq", "1024", "--ckpt-every",
+              str(TRAIN_STEPS))
+TRAIN_DIR = ROOT / "build" / "train_full"
+#: steps whose wall the median is taken over (steps 5-30), and the steps
+#: profiled for the device's busy share
+TRAIN_STEADY, TRAIN_PROFILED = 4, 3
+H100_BF16_FLOPS = 989e12      # dense, NVIDIA data sheet
+#: a training step's rows at smollm's width (batch 8 x seq 1024), and the
+#: input sets its timing takes in turn (4 x 31.5 MB of x and g)
+BWD_SHAPE, BWD_SETS = (8192, 960), 4
+
+
+#: how far the kernel's f32 1 / rms may sit from the plain version's,
+#: relatively (it sums x * x in another order: a few f32 ulps)
+R_SLACK = 2.0 ** -20
+
+
+def dscale_room(x, g):
+    """Room for each column of dscale: R_SLACK of the sum of |g * n| over
+    the rows (n = cast(x * r), the sum taken in another order), plus, for
+    every term, |g| times how far n moves when r moves by R_SLACK either
+    way: where x * r lies that close to a bf16 rounding point, the
+    kernel's r may round it the other way.  Not one term more: one missing
+    or doubled row moves a column by far more."""
+    d = x.shape[-1]
+    xf, ga = x.float(), g.float().abs()
+    v = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + 1e-5)
+    n = v.to(x.dtype).float()
+    flips = sum(((v * (1 + t)).to(x.dtype).float() - n).abs()
+                for t in (R_SLACK, -R_SLACK))
+    return (ga * (R_SLACK * n.abs() + flips)).reshape(-1, d).sum(0)
+
+
+def bwd_close(name, got, want, x, s, g) -> float:
+    """The backward kernel against its plain version: dx at the forward's
+    bar (``RMS_TOL``); dscale within ``dscale_room`` plus, in bf16, one
+    ulp of the result (8e-3).  Returns the larger max |err|."""
+    assert_close(f"{name} dx", got[0], want[0], *RMS_TOL[x.dtype])
+    room = dscale_room(x, g)
+    if x.dtype == torch.bfloat16:
+        room = room + 8e-3 * want[1].float().abs()
+    err = (got[1].float() - want[1].float()).abs()
+    if not torch.isfinite(got[1].float()).all() or bool((err > room + 1e-6)
+                                                        .any()):
+        raise AssertionError(f"{name} dscale: max |err| {float(err.max())}"
+                             f", {float((err - room).max())} beyond its "
+                             f"bound")
+    return max(max_err(got[0], want[0]), float(err.max()))
+
+
+def check_rmsnorm_bwd() -> dict:
+    """The RMSNorm backward kernel against ``rmsnorm_bwd_ref`` in f32 and
+    bf16 at a training step's rows (8192, 960), a decode step's (8, 1,
+    960) and 3 rows of every width ``check_width`` takes; two calls give
+    the same bits.  Timed at (8192, 960) bf16 against autograd through
+    ``F.rms_norm``."""
+    from repro_torch.kernels.rmsnorm.ops import MAX_D, rmsnorm_bwd_cuda
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+
+    def inputs(shape, dt):
+        x = (3.0 * torch.randn(shape, generator=gen, device=dev)).to(dt)
+        s = (1.0 + 0.1 * torch.randn(shape[-1:], generator=gen,
+                                     device=dev)).to(dt)
+        g = torch.randn(shape, generator=gen, device=dev).to(dt)
+        return x, s, g
+
+    worst, n = 0.0, 0
+    for dt in (torch.float32, torch.bfloat16):
+        per_vec = 16 // dt.itemsize
+        shapes = [BWD_SHAPE, (8, 1, 960)] + [
+            (3, w) for w in range(per_vec, MAX_D + 1, per_vec)]
+        for shape in shapes:
+            x, s, g = inputs(shape, dt)
+            got = rmsnorm_bwd_cuda(x, s, g)
+            again = rmsnorm_bwd_cuda(x, s, g)
+            name = f"rmsnorm_bwd {shape} {dt}"
+            if not (torch.equal(got[0], again[0])
+                    and torch.equal(got[1], again[1])):
+                raise AssertionError(f"{name}: two calls differ")
+            err = bwd_close(name, got, rmsnorm_bwd_ref(x, s, g), x, s, g)
+            if shape in (BWD_SHAPE, (8, 1, 960)):
+                worst = max(worst, err)
+            n += 1
+    # timed on BWD_SETS input sets in turn, 126 MB in all: each call
+    # finds its inputs out of the 50 MB L2 cache, as a training step's
+    # backward finds the norm's saved input
+    sets = itertools.cycle([inputs(BWD_SHAPE, torch.bfloat16)
+                            for _ in range(BWD_SETS)])
+
+    def kernel():
+        rmsnorm_bwd_cuda(*next(sets))
+
+    def plain():
+        rmsnorm_bwd_ref(*next(sets))
+
+    def library():
+        x, s, g = next(sets)
+        xr, sr = x.detach().requires_grad_(), s.detach().requires_grad_()
+        torch.autograd.grad(F.rms_norm(xr, (x.shape[-1],), sr, 1e-5),
+                            (xr, sr), g)
+    rows, d = BWD_SHAPE
+    b_ms, b_by = bound(3 * rows * d * 2 + 2 * d * 2, 10.0 * rows * d)
+    return {"name": "rmsnorm_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+            "replaces": "src/repro/kernels/rmsnorm/rmsnorm.py:24",
+            "max_abs_err": worst,
+            **timings(kernel, plain,
+                      library if hasattr(F, "rms_norm") else None,
+                      iters=200),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "shape": f"x, g {BWD_SHAPE} bf16 (the backward of a training "
+                     f"step's norm; {BWD_SETS} input sets in turn, out of "
+                     f"L2); {n} shapes checked, every one deterministic"}
+
+
+def _loss_grads(cfg, params, batch) -> tuple[float, dict]:
+    """``loss_fn`` and the gradient of every parameter (None where the
+    loss does not reach it), on fresh leaves of ``params``."""
+    from repro_torch.models import transformer as T
+    leaves = {}
+
+    def leaf(path, t):
+        leaves[path] = t.detach().clone().requires_grad_()
+        return leaves[path]
+
+    def walk(tree, path=""):
+        if isinstance(tree, dict):
+            return {k: walk(v, f"{path}/{k}") for k, v in tree.items()}
+        return leaf(path, tree)
+    loss = T.loss_fn(cfg)(walk(params), batch)
+    grads = torch.autograd.grad(loss, list(leaves.values()),
+                                allow_unused=True)
+    return float(loss.detach()), dict(zip(leaves, grads))
+
+
+def train_card_vs_cpu(name) -> dict:
+    """``loss_fn`` and every gradient of the reduced config on the card
+    against the same weights and batch on the CPU (the kernels' plain
+    versions), prompt tokens as in phase 5 and their successors as labels.
+    The loss within the larger of ``CARD_LOGIT_TOL`` and the CPU's own
+    movement under one bf16 ulp on the embedding table (phase 5's rule for
+    logits, as atol and rtol);
+    each gradient within the larger of ``CARD_LOGIT_TOL`` and that
+    movement, both relative to the CPU gradient's norm."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import transformer as T
+    cfg = get_arch(name).reduced()
+    cpu = T.init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
+    emb = cpu["embed"]["emb"]
+    sign = torch.where(torch.rand(emb.shape, generator=torch.Generator()
+                                  .manual_seed(SEED + 11)) < 0.5, -1.0, 1.0)
+    moved = dict(cpu, embed={"emb": (emb.float() * (1 + sign * 2.0 ** -8))
+                             .to(emb.dtype)})
+    seq = np.random.default_rng(SEED + 12).integers(
+        1, cfg.vocab, SYS_LEN + SUFFIX_LEN + 1)
+    labels = torch.as_tensor(seq[1:][None], dtype=torch.int64)
+
+    def batch(params):
+        return dict(family_inputs(cfg, params, seq[:-1], "cpu"),
+                    labels=labels)
+    card_loss, card = _loss_grads(cfg, _tree_to(cpu, "cuda"),
+                                  _tree_to(batch(cpu), "cuda"))
+    host_loss, host = _loss_grads(cfg, cpu, batch(cpu))
+    ref_loss, ref = _loss_grads(cfg, moved, batch(moved))
+    if not np.isfinite(card_loss):
+        raise AssertionError(f"{name}: the card's loss is not finite")
+    loss_tol = max(CARD_LOGIT_TOL, abs(ref_loss - host_loss))
+    if abs(card_loss - host_loss) > loss_tol * (1 + abs(host_loss)):
+        raise AssertionError(f"{name}: card loss {card_loss}, CPU "
+                             f"{host_loss}, beyond {loss_tol}")
+    worst, tol = 0.0, CARD_LOGIT_TOL
+    for path, h in host.items():
+        c = card[path]
+        if h is None or c is None:
+            if (h is None) != (c is None):
+                raise AssertionError(f"{name} {path}: a gradient on one "
+                                     f"side only")
+            continue
+        c = c.float().cpu()
+        if not torch.isfinite(c).all():
+            raise AssertionError(f"{name} {path}: gradient not finite")
+        norm = max(float(h.float().norm()), 1e-12)
+        lim = max(CARD_LOGIT_TOL, float((ref[path].float() - h.float())
+                                        .norm()) / norm)
+        err = float((c - h.float()).norm()) / norm
+        if err > lim:
+            raise AssertionError(f"{name} {path}: gradient off by {err:.4g}"
+                                 f" of its norm, beyond {lim:.4g}")
+        worst, tol = max(worst, err), max(tol, lim)
+    return {"arch": name, "family": cfg.family, "loss_err":
+            abs(card_loss - host_loss), "loss_tol": loss_tol,
+            "grad_err": worst, "grad_tol": tol, "leaves": len(host)}
+
+
+def train_full() -> dict:
+    """Full-width smollm-360m trained by the launcher as a subprocess and
+    by the same command in this process (launch counters zeroed just
+    before, read just after); the launcher's final checkpoint restores to
+    the in-process state bit for bit; then 3 steps under the profiler."""
+    import shutil
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import kernels
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.launch.train import build_trainer, parse_args
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                          *TRAIN_ARGV, "--ckpt-dir", str(TRAIN_DIR)],
+                         capture_output=True, text=True, env=env, cwd=ROOT,
+                         timeout=600)
+    sub_s = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"the train launcher exited {res.returncode}:"
+                             f"\n{res.stderr[-3000:]}")
+    body, last = res.stdout.rstrip().rsplit("\n", 1)
+    logged = json.loads(body)
+    losses = [m["loss"] for m in logged]
+    if not (losses and all(np.isfinite(losses))
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"the launcher's losses {losses}: not finite "
+                             f"and falling")
+    if not last.startswith(f"finished at step {TRAIN_STEPS};"):
+        raise AssertionError(f"the launcher ended with {last!r}")
+
+    inproc = ROOT / "build" / "train_full_inproc"
+    shutil.rmtree(inproc, ignore_errors=True)
+    tr = build_trainer(parse_args([*TRAIN_ARGV, "--ckpt-dir", str(inproc)]))
+    walls = []
+    track = tr._track_stragglers
+
+    def timed(dt):
+        walls.append(dt)
+        track(dt)
+    tr._track_stragglers = timed
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    state = tr.run()
+    counts = kernels.launch_counts()
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    shutil.rmtree(inproc, ignore_errors=True)
+
+    t0 = time.perf_counter()
+    like = {"params": state.params, "opt_state": state.opt_state}
+    tree, manifest = CheckpointManager(str(TRAIN_DIR)).restore(like)
+    restore_s = time.perf_counter() - t0
+    mine, theirs = list(_leaves(like)), list(_leaves(tree))
+    differ = sum(not torch.equal(a, b) for a, b in zip(mine, theirs))
+    if manifest["step"] != TRAIN_STEPS or len(mine) != len(theirs) \
+            or differ:
+        raise AssertionError(f"the launcher's checkpoint (step "
+                             f"{manifest['step']}) differs from the "
+                             f"in-process state in {differ} of "
+                             f"{len(mine)} leaves")
+    del tree
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+
+    step = tr.step_fn
+
+    def run(n, first):
+        for i in range(n):
+            step(state.params, state.opt_state, tr._batch(first + i))
+        torch.cuda.synchronize()
+    run(1, TRAIN_STEPS)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run(TRAIN_PROFILED, TRAIN_STEPS + 1)
+    per_kernel: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            per_kernel[e.name] = per_kernel.get(e.name, 0.0) + \
+                e.time_range.elapsed_us() / 1e3 / TRAIN_PROFILED
+    busy = sum(per_kernel.values())
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]
+    cfg = tr.model_cfg
+    n_params = sum(t.numel() for t in _leaves(state.params))
+    n_body = n_params - cfg.vocab * cfg.d_model      # all but the embedding
+    tokens = tr.data_cfg.global_batch * tr.data_cfg.seq_len
+    median = statistics.median(walls[TRAIN_STEADY:])
+    return {"sub_s": sub_s, "run_s": run_s, "restore_s": restore_s,
+            "losses": losses, "logged": [m["step"] for m in logged],
+            "leaves": len(mine), "median_ms": 1e3 * median,
+            "tokens_per_s": tokens / median, "busy_ms": busy or None,
+            "top": top, "n_kernels": len(per_kernel),
+            "peak": peak, "counts": counts, "steps": len(walls),
+            "n_params": n_params, "n_body": n_body,
+            "mfu": 6 * n_body * tokens / median / H100_BF16_FLOPS}
+
+
+def train_restart() -> dict:
+    """``tests/test_substrate.py``'s tiny trainer on the card: a crash at
+    step 4, a resume from step 3's checkpoint, against an uninterrupted
+    run (JAX's 2e-2); prints the max |diff| (0 when both runs are
+    bit-equal)."""
+    import shutil
+    import tempfile
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.optim.optimizers import OptConfig
+    from repro_torch.train.trainer import TrainConfig, Trainer
+    cfg = get_arch("smollm-360m").reduced().scaled(
+        n_layers=2, d_model=64, n_heads=2, n_kv_heads=2, d_ff=128, vocab=256,
+        head_dim=32, remat=False)
+    root = Path(tempfile.mkdtemp(dir=ROOT / "build"))
+
+    def trainer(d):
+        return Trainer(cfg, OptConfig(lr=1e-3, warmup_steps=2,
+                                      decay_steps=6),
+                       DataConfig(vocab=cfg.vocab, seq_len=32,
+                                  global_batch=2),
+                       TrainConfig(steps=6, ckpt_dir=str(root / d),
+                                   ckpt_every=3, log_every=2), device="cuda")
+    try:
+        a = trainer("a").run()
+        crashed = trainer("b")
+        try:
+            crashed.run(fail_at_step=4)
+            raise AssertionError("the injected failure did not fire")
+        except RuntimeError as e:
+            if "injected failure" not in str(e):
+                raise
+        # step 3's checkpoint is written by a thread the crash leaves
+        # running; a process that died would leave it whole or absent
+        crashed.ckpt.wait()
+        resumed = trainer("b")
+        start = resumed._restore_or_init().step
+        b = resumed.run()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    diff = max(float((x.detach().float() - y.detach().float()).abs().max())
+               for x, y in zip(_leaves(a.params), _leaves(b.params)))
+    if start != 3 or b.step != 6 or diff > 2e-2:
+        raise AssertionError(f"resumed at {start}, ended at {b.step}, max "
+                             f"|diff| {diff} against the uninterrupted run")
+    return {"resumed_at": start, "max_diff": diff}
+
+
+def train_phase(smi: str) -> dict:
+    """Phase 8: the backward kernel, every reduced config's gradients on
+    the card against the CPU, full-width smollm-360m trained through the
+    launcher, and the restart check."""
+    t0 = time.perf_counter()
+    row = check_rmsnorm_bwd()
+    log(f"phase 8: training on the card ({smi})")
+    log(f"  rmsnorm_bwd {row['shape']} ({time.perf_counter() - t0:.1f} s):"
+        f" device time a call: kernel {row['ms']:.5f} ms, plain "
+        f"{row['plain_ms']:.5f} ms, autograd through F.rms_norm "
+        f"{row['library_ms']}; bound {row['bound_ms']:.6f} ms "
+        f"({row['bound_by']}); back-to-back wall a call {row['wall']}; "
+        f"max|err| {row['max_abs_err']:.3g}")
+    from repro_torch.configs.registry import ARCHS
+    t0 = time.perf_counter()
+    pairs = [train_card_vs_cpu(name) for name in ARCHS]
+    log(f"  card vs CPU, loss_fn and every gradient of every reduced config"
+        f" ({time.perf_counter() - t0:.1f} s; gradient errors relative to "
+        f"the CPU gradient's norm):")
+    for c in pairs:
+        log(f"    {c['arch']:26s} {c['family']:6s} |loss err| "
+            f"{c['loss_err']:.4g} (limit {c['loss_tol']:.4g}); worst of "
+            f"{c['leaves']} gradients {c['grad_err']:.4g} (limit "
+            f"{c['grad_tol']:.4g})")
+    t0 = time.perf_counter()
+    full = train_full()
+    n_layers = 32
+    per_step = {k: full["counts"][k] / full["steps"]
+                for k in ("rmsnorm", "rmsnorm_bwd")}
+    want = {"rmsnorm": 4 * n_layers + 1, "rmsnorm_bwd": 2 * n_layers + 1}
+    if per_step != want:
+        raise AssertionError(f"rmsnorm launches a step {per_step}, not "
+                             f"{want}")
+    busy = ("not measured" if full["busy_ms"] is None else
+            f"{full['busy_ms']:.3f} ms busy a step "
+            f"({full['busy_ms'] / full['median_ms']:.3f} of the median)")
+    log(f"  smollm-360m at full width ({full['n_params'] / 1e6:.1f} M "
+        f"parameters, remat on), {' '.join(TRAIN_ARGV)}: the launcher "
+        f"exited 0 in {full['sub_s']:.1f} s, losses at steps "
+        f"{full['logged']}: {[round(v, 4) for v in full['losses']]}")
+    log(f"    the same command in this process ({full['run_s']:.1f} s): "
+        f"its {full['leaves']} params and optimizer-state leaves equal the "
+        f"launcher's final checkpoint bit for bit (restored in "
+        f"{full['restore_s']:.1f} s)")
+    log(f"    median step wall (steps {TRAIN_STEADY + 1}-{full['steps']}) "
+        f"{full['median_ms']:.3f} ms, {full['tokens_per_s']:.0f} tokens/s, "
+        f"device {busy} (torch.profiler, {TRAIN_PROFILED} steps); "
+        f"MFU {full['mfu']:.4f} (6 x {full['n_body'] / 1e6:.1f} M "
+        f"non-embedding parameters x tokens / wall / 989 TFLOP/s)")
+    log(f"    device time a step by kernel (the top 12 of "
+        f"{full['n_kernels']} kernel names):")
+    for kname, ms in full["top"]:
+        log(f"      {ms:9.3f} ms  {kname[:100]}")
+    log(f"    torch.cuda.max_memory_allocated {full['peak'] / 2 ** 30:.3f} "
+        f"GiB; rmsnorm launches a step: {per_step['rmsnorm']:.0f} forward "
+        f"(65 + 64 recomputed), {per_step['rmsnorm_bwd']:.0f} backward")
+    log(f"    main-path kernel launches: {full['counts']}")
+    rs = train_restart()
+    log(f"  restart on the card (tiny config): crashed at step 4, resumed "
+        f"at step {rs['resumed_at']}; max |param diff| against the "
+        f"uninterrupted run {rs['max_diff']:.3g} (limit 2e-2)"
+        + (" — the two runs are bit-equal" if rs["max_diff"] == 0 else ""))
+    log(f"  phase 8 took {time.perf_counter() - t0:.1f} s after the kernel "
+        f"checks")
+    return {"row": row, "pairs": pairs, "full": full, "restart": rs}
+
+
 def decode_step_profile(mc, params, n_steps: int = 10,
                         paged: bool = True) -> dict:
     """Device busy time of steady decode steps at the smoke's shapes: the
@@ -1877,8 +2323,15 @@ def main() -> int:
         f"{pr['gbdt_fit_s']:.2f} s")
     log(f"  phase 7 took {time.perf_counter() - t0:.1f} s")
 
+    # the serving weights make way for the training state
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = train_phase(smi)
+    rows.append(train["row"])
+
     st = res["stats"]
-    log(f"phase 8 ({smi}):")
+    log(f"phase 9 ({smi}):")
     log("  batched path:")
     log(f"  completed {res['completed']}, dropped {res['dropped']}, "
         f"batched == one at a time on {res['compared']} requests")
@@ -1916,7 +2369,8 @@ def main() -> int:
         f"{fam['peak'] / 2 ** 30:.3f} GiB; launches {moe['counts']}")
     for r in rows:
         r["launches"] = sum(c[r["name"]] for c in (
-            res["counts"], rr["counts"], moe["counts"], cal["counts"]))
+            res["counts"], rr["counts"], moe["counts"], cal["counts"],
+            train["full"]["counts"]))
         r.pop("shape")
         r["wall_ms"] = r.pop("wall")["ms"]
     print(json.dumps({"kernels": rows}), flush=True)

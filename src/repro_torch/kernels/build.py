@@ -44,6 +44,8 @@ SIGNATURES = {
     "pmf_conv_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "rmsnorm_bf16": [_P, _P, _P, _I, _I, _F, _P],
     "rmsnorm_f32": [_P, _P, _P, _I, _I, _F, _P],
+    "rmsnorm_bwd_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "rmsnorm_bwd_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "rmsnorm_geometry": [_I, _I, _IP, _IP],
     "launch_floor": [_P],
 }
@@ -124,6 +126,17 @@ def current_stream(device: torch.device) -> int:
     if index is None:
         index = torch.cuda.current_device()
     return torch._C._cuda_getCurrentRawStream(index)
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise ``RuntimeError`` where autograd would record a forward-only
+    kernel (grad mode on and an input requiring a gradient): its output,
+    written through ctypes, would carry no ``grad_fn`` and silently cut
+    the graph."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name} has no backward: call it under "
+                           f"torch.no_grad() or on inputs that need no "
+                           f"gradient")
 
 
 def check(err: int, name: str) -> None:

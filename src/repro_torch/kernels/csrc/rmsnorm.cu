@@ -26,6 +26,26 @@
 // never from the row count: every row is reduced in the same order whatever
 // its batch-mates, so a row's bits do not depend on them.
 
+//
+// The backward (rmsnorm_bwd_*), which no TPU kernel has: the gradient of
+// the same function for a trainer that runs its norms on this kernel.  For
+// each row, in f32 (r as above, g the output's gradient):
+//   dn = g * scale;   dx = r * (dn - x * r^2 * mean(dn * x))    (x's dtype)
+//   dscale = sum over rows of g * cast_to_x_dtype(x * r)      (scale's dtype)
+// Bound: one read of x and g and the scale, one write of dx and dscale;
+// at a training step's 8,192 rows of 960 bf16 that is 47 MB, 14 us at
+// 3.35 TB/s.  Design: the forward's geometry (a warp or more a row, the
+// row, its gradient and the scale held in registers as 16-byte vectors);
+// the row's two sums (x * x and dn * x) share one butterfly and, for a
+// multi-warp row, one shared-memory exchange.  dscale is a sum over every
+// row, and it is deterministic: at most kBwdMaxBlocks blocks each walk a
+// fixed set of rows (group blockIdx.x, then every gridDim.x-th), each lane
+// summing its columns' g * cast(x * r) in row order; a block adds its row
+// slots in slot order and writes one f32 row of partial sums to a scratch
+// (blocks, D) buffer; a second launch adds those rows in block order
+// (32 strided chains a column, then the chains in order).  No atomics: two
+// calls give the same bits.
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -192,6 +212,209 @@ int dispatch(const void* x, const void* scale, void* out, int rows, int d,
   return (int)cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------------------------------
+// backward
+// ---------------------------------------------------------------------------
+
+// the most blocks the backward's first launch takes (4 a streaming
+// multiprocessor of an H100): the rows of f32 partial sums of dscale
+// that the second launch adds
+constexpr int kBwdMaxBlocks = 528;
+
+template <typename T, int WARPS, int VPL>
+__global__ void __launch_bounds__(32 * WARPS * rows_per_block(WARPS))
+rmsnorm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ scale,
+                   const T* __restrict__ g, T* __restrict__ dx,
+                   float* __restrict__ partial, int rows, int d, float eps) {
+  constexpr int E = per_vec<T>();
+  constexpr int kRowThreads = 32 * WARPS;
+  constexpr int kRows = rows_per_block(WARPS);
+  const int slot = threadIdx.x / kRowThreads;
+  const int tid = threadIdx.x % kRowThreads;
+  const int nvec = d / E;
+  const uint4* sv = reinterpret_cast<const uint4*>(scale);
+
+  uint4 s4[VPL];
+#pragma unroll
+  for (int i = 0; i < VPL; ++i) {
+    const int j = tid + i * kRowThreads;
+    s4[i] = j < nvec ? __ldg(sv + j) : make_uint4(0, 0, 0, 0);
+  }
+  // this lane's share of dscale over the rows its slot walks
+  float acc[VPL][E];
+#pragma unroll
+  for (int i = 0; i < VPL; ++i)
+#pragma unroll
+    for (int k = 0; k < E; ++k) acc[i][k] = 0.f;
+
+  // every slot of the block walks the same number of groups, so the
+  // barriers of a multi-warp row are reached by all its threads
+  const int groups = (rows + kRows - 1) / kRows;
+  for (int grp = blockIdx.x; grp < groups; grp += gridDim.x) {
+    const size_t row = (size_t)grp * kRows + slot;
+    const bool live = row < (size_t)rows;
+    const uint4* xr = reinterpret_cast<const uint4*>(x + row * d);
+    const uint4* gr = reinterpret_cast<const uint4*>(g + row * d);
+    uint4 v[VPL], g4[VPL];
+#pragma unroll
+    for (int i = 0; i < VPL; ++i) {
+      const int j = tid + i * kRowThreads;
+      const bool in = live && j < nvec;
+      v[i] = in ? xr[j] : make_uint4(0, 0, 0, 0);
+      g4[i] = in ? gr[j] : make_uint4(0, 0, 0, 0);
+    }
+    // sum x * x and sum dn * x: a sum a vector, then the vectors in order
+    float ss = 0.f, dot = 0.f;
+#pragma unroll
+    for (int i = 0; i < VPL; ++i) {
+      const T* e = reinterpret_cast<const T*>(&v[i]);
+      const T* ge = reinterpret_cast<const T*>(&g4[i]);
+      const T* se = reinterpret_cast<const T*>(&s4[i]);
+      float vs = 0.f, vd = 0.f;
+#pragma unroll
+      for (int k = 0; k < E; ++k) {
+        const float f = to_f32(e[k]);
+        vs += f * f;
+        vd += to_f32(ge[k]) * to_f32(se[k]) * f;
+      }
+      ss += vs;
+      dot += vd;
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      ss += __shfl_xor_sync(0xffffffffu, ss, o);
+      dot += __shfl_xor_sync(0xffffffffu, dot, o);
+    }
+    if constexpr (WARPS > 1) {
+      __shared__ float2 warp_sums[kRows][WARPS];
+      if ((tid & 31) == 0) warp_sums[slot][tid >> 5] = make_float2(ss, dot);
+      __syncthreads();
+      ss = dot = 0.f;
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w) {
+        ss += warp_sums[slot][w].x;
+        dot += warp_sums[slot][w].y;
+      }
+      __syncthreads();    // read before the next group writes
+    }
+    if (!live) continue;
+    const float inv_d = 1.f / (float)d;
+    const float r = rsqrtf(ss * inv_d + eps);
+    const float c = r * r * (dot * inv_d);
+    uint4* dxr = reinterpret_cast<uint4*>(dx + row * d);
+#pragma unroll
+    for (int i = 0; i < VPL; ++i) {
+      const int j = tid + i * kRowThreads;
+      if (j >= nvec) break;
+      const T* e = reinterpret_cast<const T*>(&v[i]);
+      const T* ge = reinterpret_cast<const T*>(&g4[i]);
+      const T* se = reinterpret_cast<const T*>(&s4[i]);
+      uint4 o4;
+      T* o = reinterpret_cast<T*>(&o4);
+#pragma unroll
+      for (int k = 0; k < E; ++k) {
+        const float f = to_f32(e[k]);
+        const float gf = to_f32(ge[k]);
+        from_f32(r * (gf * to_f32(se[k]) - f * c), o + k);
+        T n;
+        from_f32(f * r, &n);                    // the forward's cast
+        acc[i][k] += gf * to_f32(n);
+      }
+      dxr[j] = o4;
+    }
+  }
+
+  // the block's row slots added in slot order, into one row of partials
+  constexpr int kSpan = kRowThreads * VPL * E;
+  if constexpr (kRows > 1) {
+    __shared__ float slots[kRows - 1][kSpan];
+    if (slot > 0) {
+#pragma unroll
+      for (int i = 0; i < VPL; ++i)
+#pragma unroll
+        for (int k = 0; k < E; ++k)
+          slots[slot - 1][(tid + i * kRowThreads) * E + k] = acc[i][k];
+    }
+    __syncthreads();
+    if (slot == 0) {
+      for (int s = 0; s < kRows - 1; ++s)
+#pragma unroll
+        for (int i = 0; i < VPL; ++i)
+#pragma unroll
+          for (int k = 0; k < E; ++k)
+            acc[i][k] += slots[s][(tid + i * kRowThreads) * E + k];
+    }
+  }
+  if (slot != 0) return;
+  float* prow = partial + (size_t)blockIdx.x * d;
+#pragma unroll
+  for (int i = 0; i < VPL; ++i) {
+    const int j = tid + i * kRowThreads;
+    if (j >= nvec) break;
+#pragma unroll
+    for (int k = 0; k < E; ++k) prow[j * E + k] = acc[i][k];
+  }
+}
+
+// dscale[col] = the sum of partial[0..blocks)[col] in a fixed order: 32
+// threads a column each add every 32nd row, then one adds their 32 sums
+template <typename T>
+__global__ void __launch_bounds__(1024)
+rmsnorm_dscale_kernel(const float* __restrict__ partial,
+                      T* __restrict__ dscale, int blocks, int d) {
+  __shared__ float chains[32][33];
+  const int col = blockIdx.x * 32 + threadIdx.x;
+  float s = 0.f;
+  if (col < d)
+    for (int b = threadIdx.y; b < blocks; b += 32)
+      s += partial[(size_t)b * d + col];
+  chains[threadIdx.y][threadIdx.x] = s;
+  __syncthreads();
+  if (threadIdx.y != 0 || col >= d) return;
+  float t = 0.f;
+#pragma unroll
+  for (int w = 0; w < 32; ++w) t += chains[w][threadIdx.x];
+  from_f32(t, dscale + col);
+}
+
+template <typename T, int WARPS, int VPL>
+cudaError_t launch_bwd(const void* x, const void* scale, const void* g,
+                       void* dx, void* dscale, float* scratch,
+                       int scratch_rows, int rows, int d, float eps,
+                       cudaStream_t stream) {
+  constexpr int kRows = rows_per_block(WARPS);
+  const int groups = (rows + kRows - 1) / kRows;
+  const int blocks = groups < kBwdMaxBlocks ? groups : kBwdMaxBlocks;
+  if (blocks > scratch_rows) return cudaErrorInvalidValue;
+  rmsnorm_bwd_kernel<T, WARPS, VPL><<<blocks, 32 * WARPS * kRows, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(scale),
+      static_cast<const T*>(g), static_cast<T*>(dx), scratch, rows, d, eps);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  rmsnorm_dscale_kernel<T><<<(d + 31) / 32, dim3(32, 32), 0, stream>>>(
+      scratch, static_cast<T*>(dscale), blocks, d);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int dispatch_bwd(const void* x, const void* scale, const void* g, void* dx,
+                 void* dscale, void* scratch, int scratch_rows, int rows,
+                 int d, float eps, void* stream) {
+  Geometry gm;
+  if (rows <= 0 || !pick<T>(d, &gm)) return (int)cudaErrorInvalidValue;
+#define RMSNORM_BWD_LAUNCH(T_, W_, V_)                                      \
+  if constexpr (std::is_same<T, T_>::value) {                               \
+    if (gm.warps == W_ && gm.vpl == V_)                                     \
+      return (int)launch_bwd<T, W_, V_>(x, scale, g, dx, dscale,           \
+                                        static_cast<float*>(scratch),      \
+                                        scratch_rows, rows, d, eps,        \
+                                        (cudaStream_t)stream);             \
+  }
+  RMSNORM_SHAPES(RMSNORM_BWD_LAUNCH)
+#undef RMSNORM_BWD_LAUNCH
+  return (int)cudaErrorInvalidValue;
+}
+
 __global__ void empty_kernel() {}
 
 }  // namespace
@@ -207,6 +430,27 @@ extern "C" int rmsnorm_bf16(const void* x, const void* scale, void* out,
 extern "C" int rmsnorm_f32(const void* x, const void* scale, void* out,
                            int rows, int d, float eps, void* stream) {
   return dispatch<float>(x, scale, out, rows, d, eps, stream);
+}
+
+// The backward: dx (x's shape) and dscale (D,) from x, scale and the
+// output's gradient g, all of one dtype, 16-byte aligned; scratch holds
+// scratch_rows x D floats, at least min(rows, kBwdMaxBlocks) rows.  Another
+// D, or too small a scratch, returns cudaErrorInvalidValue and launches
+// nothing.
+extern "C" int rmsnorm_bwd_bf16(const void* x, const void* scale,
+                                const void* g, void* dx, void* dscale,
+                                void* scratch, int scratch_rows, int rows,
+                                int d, float eps, void* stream) {
+  return dispatch_bwd<__nv_bfloat16>(x, scale, g, dx, dscale, scratch,
+                                     scratch_rows, rows, d, eps, stream);
+}
+
+extern "C" int rmsnorm_bwd_f32(const void* x, const void* scale,
+                               const void* g, void* dx, void* dscale,
+                               void* scratch, int scratch_rows, int rows,
+                               int d, float eps, void* stream) {
+  return dispatch_bwd<float>(x, scale, g, dx, dscale, scratch, scratch_rows,
+                             rows, d, eps, stream);
 }
 
 // The (warps, vpl) that rows of d elements of elem_bytes (2: bf16, 4: f32)

@@ -20,7 +20,7 @@ import math
 
 import torch
 
-from ..build import check, current_stream, library
+from ..build import check, current_stream, library, refuse_grad
 from .ref import (SPLIT_GRANULE, SPLIT_RANKS, decode_attention_ref,
                   paged_decode_attention_ref)
 from ...obs.profiling import profiled
@@ -87,7 +87,9 @@ def decode_attention_cuda(q, k_cache, v_cache, lengths):
     lengths (B,) int32 -> (B, H, hd) bf16.
 
     Row b attends over its first ``min(lengths[b], S)`` keys; keys past
-    that are never read, and a row of length 0 gets zeros."""
+    that are never read, and a row of length 0 gets zeros.  Forward only:
+    raises where autograd would record it."""
+    refuse_grad("decode_attention_cuda", q, k_cache, v_cache)
     if k_cache.dim() != 4:
         raise ValueError(f"k_cache must be (B, S, Hkv, hd), not "
                          f"{tuple(k_cache.shape)}")
@@ -140,7 +142,9 @@ def paged_decode_attention_cuda(q, k_pages, v_pages, block_tables, lengths):
     sequence's length reaches; entries past it are never read.  A page is
     staged whole in shared memory, so the kernel refuses (``RuntimeError``)
     a page longer than 256 keys at hd 64, 128 at hd 128, 64 at hd 256, 32
-    at hd 512 and 16 at hd 1024."""
+    at hd 512 and 16 at hd 1024.  Forward only: raises where autograd
+    would record it."""
+    refuse_grad("paged_decode_attention_cuda", q, k_pages, v_pages)
     np_, ps, hkv, hd = k_pages.shape
     b, h = q.shape[0], q.shape[1]
     if q.dim() != 3 or q.shape[2] != hd or h % hkv:

@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..build import check, current_stream, library
+from ..build import check, current_stream, library, refuse_grad
 from .ref import pmf_conv_ref
 from ...device import resolve_device
 from ...obs.profiling import profiled
@@ -23,7 +23,9 @@ __all__ = ["pmf_conv", "pmf_conv_cuda", "pack_pmfs", "batched_success"]
 def pmf_conv_cuda(pet, pct, dl, cut=None):
     """The CUDA kernel.  pet (N, Le), pct (N, Lc), dl (N,) and cut (N,)
     f32 on the card -> (out (N, Lc+Le-1), success (N,)).  ``cut`` None
-    cuts at ``dl``, as the Pallas kernel does."""
+    cuts at ``dl``, as the Pallas kernel does.  Forward only: raises
+    where autograd would record it."""
+    refuse_grad("pmf_conv_cuda", pet, pct)
     n, le = pet.shape
     lc = pct.shape[1]
     if cut is None:

@@ -6,8 +6,9 @@ matmul weight stored (in_dim, out_dim), so ``x @ w`` matches
 JAX package leaves them to XLA; every norm goes through the port's RMSNorm
 kernel (``kernels.rmsnorm``) and, on the card, the contiguous-cache decode
 attention through the port's flash-decode kernel
-(``kernels.decode_attention``).  Forward only: the port serves, it does not
-train.
+(``kernels.decode_attention``).  The training path is differentiable:
+the RMSNorm kernel has a backward kernel, and ``flash_attention`` is an
+autograd function with the JAX package's flash backward.
 
 ``ParamInit`` draws the random weights of every module's ``*_init``: on a
 given device from a given ``torch.Generator``, in bounded pieces, so a
@@ -167,40 +168,36 @@ def full_attention(q, k, v, causal: bool = True, q_offset: int = 0):
     return torch.einsum("bhqk,bkhd->bqhd", probs.to(q.dtype), v)
 
 
-def flash_attention(q, k, v, causal: bool = True, q_block: int = 512,
-                    kv_block: int = 1024):
-    """Double-blocked flash attention (forward): an online softmax over
-    kv blocks per q block, never more than a (q_block x kv_block) score
-    tile per (batch, head) — the forward of ``layers.flash_attention``."""
-    b, sq, h, hd = q.shape
-    sk = k.shape[1]
-    if sq <= q_block and sk <= kv_block:
-        return full_attention(q, k, v, causal=causal)
-    q_block = min(q_block, sq)
-    kv_block = min(kv_block, sk)
+def _tile_mask(qi, kj, q_block, kv_block, sk, causal, device):
+    """(q_block, kv_block) validity mask for tile (qi, kj)."""
+    qpos = qi * q_block + torch.arange(q_block, device=device)
+    kpos = kj * kv_block + torch.arange(kv_block, device=device)
+    mask = kpos[None, :] < sk
+    if causal:
+        mask = mask & (qpos[:, None] >= kpos[None, :])
+    return mask
+
+
+def _flash_fwd(q, k, v, causal, sk, q_block, kv_block):
+    """The online softmax over kv blocks, per q block, on padded q
+    (B, nq*qb, H, hd) and k/v (B, nk*kb, H, hd): (out (B, nq*qb, H, hd) in
+    q's dtype, m and l (B, H, nq*qb) f32)."""
+    b, sqp, h, hd = q.shape
+    nq, nk = sqp // q_block, k.shape[1] // kv_block
     scale = 1.0 / math.sqrt(hd)
-    nq = -(-sq // q_block)
-    nk = -(-sk // kv_block)
-    qp = F.pad(q, (0, 0, 0, 0, 0, nq * q_block - sq))
-    kp = F.pad(k, (0, 0, 0, 0, 0, nk * kv_block - sk))
-    vp = F.pad(v, (0, 0, 0, 0, 0, nk * kv_block - sk))
-    outs = []
+    outs, ms, ls = [], [], []
     for qi in range(nq):
-        q_tile = qp[:, qi * q_block:(qi + 1) * q_block]
-        qpos = qi * q_block + torch.arange(q_block, device=q.device)
+        q_tile = q[:, qi * q_block:(qi + 1) * q_block]
         m = torch.full((b, h, q_block), -1e30, dtype=torch.float32,
                        device=q.device)
         l = torch.zeros((b, h, q_block), dtype=torch.float32, device=q.device)
         acc = torch.zeros((b, h, q_block, hd), dtype=torch.float32,
                           device=q.device)
         for kj in range(nk):
-            k_tile = kp[:, kj * kv_block:(kj + 1) * kv_block]
-            v_tile = vp[:, kj * kv_block:(kj + 1) * kv_block]
+            k_tile = k[:, kj * kv_block:(kj + 1) * kv_block]
+            v_tile = v[:, kj * kv_block:(kj + 1) * kv_block]
             s = torch.einsum("bqhd,bkhd->bhqk", q_tile, k_tile).float() * scale
-            kpos = kj * kv_block + torch.arange(kv_block, device=q.device)
-            mask = kpos[None, :] < sk
-            if causal:
-                mask = mask & (qpos[:, None] >= kpos[None, :])
+            mask = _tile_mask(qi, kj, q_block, kv_block, sk, causal, q.device)
             s = torch.where(mask[None, None], s, -1e30)
             m_new = torch.maximum(m, s.amax(dim=-1))
             p = torch.exp(s - m_new[..., None])
@@ -212,7 +209,83 @@ def flash_attention(q, k, v, causal: bool = True, q_block: int = 512,
             m = m_new
         out = acc / torch.clamp(l, min=1e-20)[..., None]
         outs.append(out.to(q.dtype).transpose(1, 2))       # (b, qb, h, hd)
-    return torch.cat(outs, dim=1)[:, :sq]
+        ms.append(m)
+        ls.append(l)
+    return torch.cat(outs, dim=1), torch.cat(ms, dim=-1), torch.cat(ls, dim=-1)
+
+
+def _flash_bwd(q, k, v, out, m, l, dout, causal, sk, q_block, kv_block):
+    """JAX's ``_flash_bwd``: each score tile recomputed from the saved
+    O(S) residuals (out, m, l), ``delta = sum(dO * O)``; dq summed over kv
+    blocks and dk/dv over q blocks, each in JAX's order, in f32."""
+    b, sqp, h, hd = q.shape
+    nq, nk = sqp // q_block, k.shape[1] // kv_block
+    scale = 1.0 / math.sqrt(hd)
+    l_safe = torch.clamp(l, min=1e-20)
+    delta = (dout.float() * out.float()).sum(dim=-1).transpose(1, 2)
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=q.device)
+    for qi in range(nq):
+        qs = slice(qi * q_block, (qi + 1) * q_block)
+        q_tile = q[:, qs]
+        do_t = dout[:, qs].float().transpose(1, 2)          # (b, h, qb, hd)
+        m_q, l_q, d_q = m[..., qs], l_safe[..., qs], delta[..., qs]
+        for kj in range(nk):
+            ks = slice(kj * kv_block, (kj + 1) * kv_block)
+            k_tile, v_tile = k[:, ks], v[:, ks]
+            s = torch.einsum("bqhd,bkhd->bhqk", q_tile, k_tile).float() * scale
+            mask = _tile_mask(qi, kj, q_block, kv_block, sk, causal, q.device)
+            p = torch.exp(s - m_q[..., None]) / l_q[..., None]
+            p = torch.where(mask[None, None], p, 0.0)
+            dp = torch.einsum("bhqd,bkhd->bhqk", do_t, v_tile.float())
+            ds = p * (dp - d_q[..., None])
+            dq[:, qs] += scale * torch.einsum("bhqk,bkhd->bqhd", ds,
+                                              k_tile.float())
+            dv[:, ks] += torch.einsum("bhqk,bhqd->bkhd", p, do_t)
+            dk[:, ks] += scale * torch.einsum("bhqk,bqhd->bkhd", ds,
+                                              q_tile.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class FlashAttention(torch.autograd.Function):
+    """``layers._flash`` (JAX's ``custom_vjp``): the blocked forward, which
+    saves (q, k, v, out, m, l) — O(S), not a score tile of each block
+    pair — and the flash backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sk, q_block, kv_block):
+        out, m, l = _flash_fwd(q, k, v, causal, sk, q_block, kv_block)
+        ctx.save_for_backward(q, k, v, out, m, l)
+        ctx.blocking = (causal, sk, q_block, kv_block)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        grads = _flash_bwd(*ctx.saved_tensors, dout.contiguous(),
+                           *ctx.blocking)
+        return grads + (None,) * 4
+
+
+def flash_attention(q, k, v, causal: bool = True, q_block: int = 512,
+                    kv_block: int = 1024):
+    """Double-blocked flash attention with a flash backward
+    (``layers.flash_attention``): an online softmax over kv blocks per q
+    block, never more than a (q_block x kv_block) score tile per (batch,
+    head) in either direction, O(S) residuals."""
+    b, sq, h, hd = q.shape
+    sk = k.shape[1]
+    if sq <= q_block and sk <= kv_block:
+        return full_attention(q, k, v, causal=causal)
+    q_block = min(q_block, sq)
+    kv_block = min(kv_block, sk)
+    pq, pk = (-sq) % q_block, (-sk) % kv_block
+    qp = F.pad(q, (0, 0, 0, 0, 0, pq))
+    kp = F.pad(k, (0, 0, 0, 0, 0, pk))
+    vp = F.pad(v, (0, 0, 0, 0, 0, pk))
+    # padded keys are masked by the true sk in each tile's mask
+    out = FlashAttention.apply(qp, kp, vp, causal, sk, q_block, kv_block)
+    return out[:, :sq]
 
 
 def decode_attention(q, k_cache, v_cache, length, window: int = 0):
@@ -337,3 +410,14 @@ def attention_apply(p, x, cfg, positions=None, kv_cache=None, length=None,
 def mlp_apply(p, x):
     return dense(p["w_down"], F.silu(dense(p["w_gate"], x))
                  * dense(p["w_up"], x))
+
+
+def cross_entropy_loss(logits, labels, ignore_id: int = -1):
+    """Mean token cross-entropy in f32; labels == ignore_id are masked."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1,
+                        torch.clamp(labels, min=0)[..., None].long())[..., 0]
+    nll = logz - gold
+    mask = (labels != ignore_id).float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

@@ -1,19 +1,29 @@
-"""Serving model in PyTorch, mirroring ``repro.models.transformer``: one
-init/prefill/decode trio covering every family the JAX package has (dense,
-vlm, moe, hybrid Mamba2, xLSTM and enc-dec), plus the paged and
+"""The model in PyTorch, mirroring ``repro.models.transformer``: one
+init/loss/prefill/decode quartet covering every family the JAX package has
+(dense, vlm, moe, hybrid Mamba2, xLSTM and enc-dec), plus the paged and
 prefix-cached entry points of the attention families.
 
 Parameters keep the JAX package's pytree: per-layer weights stacked on
 axis 0 (twice for hybrid's (groups, period) Mamba2 blocks), and a Python
-loop over layers replaces ``lax.scan``.  Caches have the JAX layouts and
-are updated in place (the JAX functions return fresh arrays; these return
-the same tensors, written).  Training (the loss and the cache-less
-backbone) is not ported.
+loop over layers replaces ``lax.scan``.  Each stacked leaf is split into
+its layers by one ``torch.unbind`` (``_unstack``): under autograd its
+backward stacks the layers' gradients once, where a select per layer would
+give back a zero tensor the size of the whole stack for each layer.  Caches
+have the JAX layouts and are updated in place (the JAX functions return
+fresh arrays; these return the same tensors, written).
+
+The training half (``loss_fn``: ``_backbone`` or the enc-dec stacks, the
+final norm and ``chunked_loss``) wraps each layer in
+``torch.utils.checkpoint`` when ``cfg.remat``, as JAX wraps it in
+``jax.checkpoint``, and each loss chunk always: the backward recomputes
+one chunk's logits at a time, so no (B, S, V) f32 logits are ever held.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
@@ -114,27 +124,24 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     return params
 
 
-def _index(tree, i):
+def _unstack(tree) -> list:
+    """The layers of a stacked tree (each leaf split along axis 0 by one
+    ``torch.unbind``), one dict per layer: what ``lax.scan`` hands its
+    body."""
     if isinstance(tree, dict):
-        return {k: _index(v, i) for k, v in tree.items()}
-    return tree[i]
-
-
-def layer_params(params: dict, i: int, key: str = "layers") -> dict:
-    """Per-layer views of the stacked ``params[key]``, one dict per layer
-    (what ``lax.scan`` hands its body)."""
-    return _index(params[key], i)
-
-
-def _stack_len(tree) -> int:
-    while isinstance(tree, dict):
-        tree = next(iter(tree.values()))
-    return tree.shape[0]
+        parts = {k: _unstack(v) for k, v in tree.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    return list(torch.unbind(tree))
 
 
 def _layers(params: dict, key: str = "layers") -> list:
-    return [layer_params(params, i, key)
-            for i in range(_stack_len(params[key]))]
+    return _unstack(params[key])
+
+
+def layer_params(params: dict, i: int, key: str = "layers") -> dict:
+    """Layer ``i`` of the stacked ``params[key]``."""
+    return _layers(params, key)[i]
 
 
 def _attention_layers(cfg: ModelConfig, params: dict) -> list:
@@ -181,6 +188,158 @@ def _inputs(cfg, params, batch):
     if cfg.embed_inputs:
         return embed(params["embed"], batch["tokens"])
     return batch["embeds"]
+
+
+# ===========================================================================
+# Training: blocks, the cache-less backbone, the chunked loss
+# ===========================================================================
+
+#: sequence positions of one loss chunk (``transformer.LOSS_CHUNK``)
+LOSS_CHUNK = 512
+
+
+def _maybe_remat(fn, cfg):
+    """``fn``, recomputed in the backward instead of saving its
+    activations when ``cfg.remat`` (``jax.checkpoint``)."""
+    if not cfg.remat:
+        return fn
+
+    def remat(*args):
+        return checkpoint(fn, *args, use_reentrant=False)
+    return remat
+
+
+def _dense_block(cfg):
+    def block(x, lp):
+        a, _ = attention_apply(lp["attn"], rmsnorm(lp["ln1"], x), cfg)
+        x = x + a
+        return x + mlp_apply(lp["mlp"], rmsnorm(lp["ln2"], x))
+    return block
+
+
+def _moe_block(cfg):
+    def block(x, aux, lp):
+        a, _ = attention_apply(lp["attn"], rmsnorm(lp["ln1"], x), cfg)
+        x = x + a
+        h, aux_l = moe_apply(lp["moe"], rmsnorm(lp["ln2"], x), cfg.moe)
+        return x + h, aux + aux_l
+    return block
+
+
+def _backbone(cfg: ModelConfig, params, x):
+    """Hidden states after the layer stack.  x: (B, S, D).  Returns
+    (hidden, aux_loss)."""
+    fam = cfg.family
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if fam in ("dense", "vlm"):
+        blk = _maybe_remat(_dense_block(cfg), cfg)
+        for lp in _layers(params):
+            x = blk(x, lp)
+    elif fam == "moe":
+        mblk = _maybe_remat(_moe_block(cfg), cfg)
+        dblk = _maybe_remat(_dense_block(cfg), cfg)
+        if cfg.moe.layer_period == 1:
+            x = dblk(x, params["dense0"])
+            for lp in _layers(params):
+                x, aux = mblk(x, aux, lp)
+        else:
+            for dlp, mlp_ in zip(_layers(params, "dense_layers"),
+                                 _layers(params)):
+                x = dblk(x, dlp)
+                x, aux = mblk(x, aux, mlp_)
+    elif fam == "hybrid":
+        shared = params["shared_attn"]
+
+        def mamba_block(h, lp):
+            y, _, _ = mamba2_apply(lp["mamba"], rmsnorm(lp["ln"], h), cfg.ssm)
+            return h + y
+        mamba_block = _maybe_remat(mamba_block, cfg)
+        attn_block = _maybe_remat(_dense_block(cfg), cfg)
+        for glp in _layers(params):
+            for lp in _unstack(glp):
+                x = mamba_block(x, lp)
+            x = attn_block(x, shared)
+    elif fam == "ssm":
+        def pair(h, lp):
+            y, _ = xl.mlstm_apply(lp["mlstm"], rmsnorm(lp["m_ln"], h),
+                                  cfg.n_heads, chunk=cfg.xlstm.chunk)
+            h = h + y
+            y, _ = xl.slstm_apply(lp["slstm"], rmsnorm(lp["s_ln"], h))
+            return h + y
+        pair = _maybe_remat(pair, cfg)
+        for lp in _layers(params):
+            x = pair(x, lp)
+    else:
+        raise ValueError(fam)
+    return x, aux
+
+
+def _decode_stack(cfg, params, x, memory):
+    """The enc-dec decoder over the whole sequence: causal self-attention,
+    cross-attention over ``memory``, MLP."""
+    def dec_block(h, lp, memory):
+        a, _ = attention_apply(lp["self_attn"], rmsnorm(lp["ln1"], h), cfg)
+        h = h + a
+        a, _ = attention_apply(lp["cross_attn"], rmsnorm(lp["ln_x"], h), cfg,
+                               memory=memory)
+        h = h + a
+        return h + mlp_apply(lp["mlp"], rmsnorm(lp["ln2"], h))
+    blk = _maybe_remat(dec_block, cfg)
+    for lp in _layers(params):
+        x = blk(x, lp, memory)
+    return x
+
+
+def _chunk_nll(h, labels, w):
+    """(summed token NLL, token count) of one chunk, in f32."""
+    logits = (h @ w).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1,
+                        torch.clamp(labels, min=0)[..., None].long())[..., 0]
+    mask = (labels >= 0).float()
+    return ((logz - gold) * mask).sum(), mask.sum()
+
+
+def chunked_loss(cfg, params, hidden, labels):
+    """Cross-entropy over sequence chunks of ``LOSS_CHUNK`` (labels padded
+    with -1); each chunk is recomputed in the backward, so neither pass
+    holds (B, S, V) f32 logits."""
+    w = _unembed_matrix(cfg, params)
+    b, s, d = hidden.shape
+    chunk = min(LOSS_CHUNK, s)
+    pad = (-s) % chunk
+    if pad:
+        hidden = F.pad(hidden, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-1)
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c0 in range(0, s + pad, chunk):
+        t, n = checkpoint(_chunk_nll, hidden[:, c0:c0 + chunk],
+                          labels[:, c0:c0 + chunk], w, use_reentrant=False)
+        tot, cnt = tot + t, cnt + n
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def loss_fn(cfg: ModelConfig):
+    """Returns f(params, batch) -> scalar loss.
+
+    batch: {"tokens": (B,S) int} or {"embeds": (B,S,D)} (+ "enc_embeds"
+    for enc-dec), and "labels": (B,S) int (-1 = ignore).  MoE adds 0.01
+    times the layers' load-balancing loss.
+    """
+    def f(params, batch):
+        if cfg.family == "encdec":
+            memory = _encode(cfg, params, batch["enc_embeds"])
+            x = embed(params["embed"], batch["tokens"])
+            hidden = _decode_stack(cfg, params, x, memory)
+        else:
+            hidden, aux = _backbone(cfg, params, _inputs(cfg, params, batch))
+        hidden = rmsnorm(params["final_ln"], hidden)
+        loss = chunked_loss(cfg, params, hidden, batch["labels"])
+        if cfg.family == "moe":
+            loss = loss + 0.01 * aux
+        return loss
+    return f
 
 
 # ---------------------------------------------------------------------------
@@ -271,8 +430,7 @@ def decode_fn(cfg: ModelConfig):
         elif fam == "hybrid":
             shared = params["shared_attn"]
             for g, glp in enumerate(_layers(params)):
-                for j in range(cfg.ssm.attn_period):
-                    lp = _index(glp, j)
+                for j, lp in enumerate(_unstack(glp)):
                     y, st, cst = mamba2_apply(
                         lp["mamba"], rmsnorm(lp["ln"], h), cfg.ssm,
                         state=cache["ssm"][g, j], conv_state=cache["conv"][g, j])
@@ -316,12 +474,15 @@ def decode_fn(cfg: ModelConfig):
 
 def _encode(cfg, params, enc_embeds):
     """The encoder stack: each block attends over its own normed input."""
-    h = enc_embeds
-    for lp in _layers(params, "encoder"):
+    def enc_block(h, lp):
         xn = rmsnorm(lp["ln1"], h)
         a, _ = attention_apply(lp["attn"], xn, cfg, memory=xn)
         h = h + a
-        h = h + mlp_apply(lp["mlp"], rmsnorm(lp["ln2"], h))
+        return h + mlp_apply(lp["mlp"], rmsnorm(lp["ln2"], h))
+    blk = _maybe_remat(enc_block, cfg)
+    h = enc_embeds
+    for lp in _layers(params, "encoder"):
+        h = blk(h, lp)
     return h
 
 
@@ -359,8 +520,7 @@ def prefill_fn(cfg: ModelConfig):
         elif fam == "hybrid":
             shared = params["shared_attn"]
             for g, glp in enumerate(_layers(params)):
-                for j in range(cfg.ssm.attn_period):
-                    lp = _index(glp, j)
+                for j, lp in enumerate(_unstack(glp)):
                     y, st, cst = mamba2_apply(lp["mamba"],
                                               rmsnorm(lp["ln"], h), cfg.ssm)
                     h = h + y

@@ -162,3 +162,43 @@ def test_serve_cli_defaults_to_cuda():
     assert out.returncode != 0
     assert "CUDA is not available" in out.stderr
     assert '"completed"' not in out.stdout
+
+
+def _train(args, timeout=600):
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train"] + args,
+        capture_output=True, text=True, env=ENV, timeout=timeout)
+    assert out.returncode == 0, (out.stdout[-1500:], out.stderr[-1500:])
+    return out.stdout
+
+
+def test_train_cli_reduced_resumes(tmp_path):
+    """The twin of ``test_cli.py::test_train_cli_reduced``: the metrics log
+    (loss, lr, grad norm, step, wall) as JSON, then the final step; the
+    same command again resumes from the checkpoint at step 3 and runs no
+    step."""
+    args = ["--device", "cpu", "--arch", "smollm-360m", "--reduced",
+            "--steps", "3", "--batch", "2", "--seq", "32",
+            "--ckpt-dir", str(tmp_path)]
+    out = _train(args)
+    body, last = out.rstrip().rsplit("\n", 1)
+    log = json.loads(body)
+    assert [m["step"] for m in log] == [1]
+    assert set(log[0]) == {"loss", "lr", "grad_norm", "step", "dt"}
+    assert last.startswith("finished at step 3;")
+    assert (tmp_path / "step_0000000003" / "arrays.npz").exists()
+    out2 = _train(args)
+    body2, last2 = out2.rstrip().rsplit("\n", 1)
+    assert json.loads(body2) == []
+    assert last2.startswith("finished at step 3;")
+
+
+def test_train_cli_defaults_to_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device exists")
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "smollm-360m", "--reduced", "--steps", "1", "--ckpt-dir",
+         str(tmp_path)], capture_output=True, text=True, env=ENV, timeout=300)
+    assert out.returncode != 0
+    assert "CUDA is not available" in out.stderr

@@ -21,7 +21,11 @@ weights on the host.  RMSNorm is held at every instantiation of its kernel
 (the library reports which one a width takes), the PMF convolution up to
 the longest row it takes, and its front door against the chance of success
 it stands for.  The merge-saving MLP trained on the card predicts as the
-same training on the host does (``MLP_CARD_ATOL``).
+same training on the host does (``MLP_CARD_ATOL``).  The RMSNorm backward
+kernel is held to its plain version at every instantiation, gives the same
+bits in two calls, and is what autograd records on the card; a reduced
+model's backward on the card reaches every parameter, and the kernels
+without a backward refuse to cut an autograd graph.
 """
 
 import ctypes
@@ -41,8 +45,9 @@ from repro_torch.core.pmf import PMF, chance_of_success
 from repro_torch.kernels.pmf_conv.ops import batched_success, pmf_conv_cuda
 from repro_torch.kernels.pmf_conv.ref import pmf_conv_ref
 from repro_torch.kernels.build import library
-from repro_torch.kernels.rmsnorm.ops import MAX_D, check_width, rmsnorm_cuda
-from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+from repro_torch.kernels.rmsnorm.ops import (MAX_D, check_width, rmsnorm,
+                                             rmsnorm_bwd_cuda, rmsnorm_cuda)
+from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref, rmsnorm_ref
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.serving.batching import StepBatchingConfig
@@ -683,3 +688,187 @@ def test_mlp_trains_on_the_card_as_on_the_host(cuda):
     assert isinstance(got, np.ndarray) and got.shape == (len(Xt),)
     np.testing.assert_allclose(got, host.predict(Xt), rtol=0,
                                atol=MLP_CARD_ATOL)
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm backward and training on the card
+# ---------------------------------------------------------------------------
+
+def _bwd_inputs(cuda, rows, d, dtype, seed):
+    x, s = _rms_inputs(cuda, rows, d, dtype, seed)
+    g = torch.randn((rows, d), generator=torch.Generator(device=cuda)
+                    .manual_seed(seed + 1), device=cuda).to(dtype)
+    return x, s, g
+
+
+#: how far the kernel's f32 1 / rms may sit from the plain version's,
+#: relatively (it sums x * x in another order: a few f32 ulps)
+R_SLACK = 2.0 ** -20
+
+
+def dscale_room(x, g):
+    """Room for each column of dscale: R_SLACK of the sum of |g * n| over
+    the rows (n = cast(x * r), the sum taken in another order), plus, for
+    every term, |g| times how far n moves when r moves by R_SLACK either
+    way: where x * r lies that close to a bf16 rounding point, the
+    kernel's r may round it the other way.  Not one term more: one missing
+    or doubled row moves a column by far more."""
+    d = x.shape[-1]
+    xf, ga = x.float(), g.float().abs()
+    v = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + 1e-5)
+    n = v.to(x.dtype).float()
+    flips = sum(((v * (1 + t)).to(x.dtype).float() - n).abs()
+                for t in (R_SLACK, -R_SLACK))
+    return (ga * (R_SLACK * n.abs() + flips)).reshape(-1, d).sum(0)
+
+
+def assert_bwd_close(got, want, x, s, g):
+    """dx at the forward's bar (``RMSNORM_TOL``: its f32 1 / rms in
+    another summation order, then one or two roundings in bf16); dscale
+    within ``dscale_room`` plus, in bf16, one ulp of the result."""
+    atol, rtol = RMSNORM_TOL[x.dtype]
+    torch.testing.assert_close(got[0].float(), want[0].float(), atol=atol,
+                               rtol=rtol)
+    room = dscale_room(x, g)
+    if x.dtype == torch.bfloat16:
+        room = room + 8e-3 * want[1].float().abs()
+    err = (got[1].float() - want[1].float()).abs()
+    assert bool((err <= room + 1e-6).all()), float((err - room).max())
+
+
+@pytest.mark.parametrize("rows", [1, 64, 2000])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", RMSNORM_D)
+def test_rmsnorm_bwd_every_instantiation(cuda, d, dtype, rows):
+    x, s, g = _bwd_inputs(cuda, rows, d, dtype, seed=d + rows)
+    got = rmsnorm_bwd_cuda(x, s, g)
+    assert got[0].dtype == got[1].dtype == dtype
+    assert got[0].shape == x.shape and got[1].shape == s.shape
+    assert_bwd_close(got, rmsnorm_bwd_ref(x, s, g), x, s, g)
+
+
+@pytest.mark.parametrize("rows,d,dtype", [(8192, 960, torch.bfloat16),
+                                          (8, 960, torch.bfloat16),
+                                          (2000, 7168, torch.float32)])
+def test_rmsnorm_bwd_is_deterministic(cuda, rows, d, dtype):
+    """dscale is summed over every row without atomics: a training step's
+    8,192 rows, a decode step's 8 and the widest row give the same bits
+    in two calls."""
+    x, s, g = _bwd_inputs(cuda, rows, d, dtype, seed=21)
+    a, b = rmsnorm_bwd_cuda(x, s, g), rmsnorm_bwd_cuda(x, s, g)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert_bwd_close(a, rmsnorm_bwd_ref(x, s, g), x, s, g)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_function_agrees_with_plain_autograd(cuda, dtype):
+    """``rmsnorm`` on the card records ``RMSNormFunction``, whose backward
+    is the kernel: its gradients against autograd through the plain
+    forward on the same tensors, at the backward's bar.  In bf16 autograd
+    also rounds each product g * n to bf16 before it sums them (half an
+    ulp, 2^-8 of a term at most), and forms g * scale in bf16 for dx (the
+    CPU tests' 2e-2)."""
+    x, s, g = _bwd_inputs(cuda, 64, 960, dtype, seed=22)
+    xs = [x.clone().requires_grad_(), s.clone().requires_grad_()]
+    y = rmsnorm(*xs)
+    assert type(y.grad_fn).__name__ == "RMSNormFunctionBackward"
+    reset_launch_counts()
+    got = torch.autograd.grad(y, xs, g)
+    assert launch_counts()["rmsnorm_bwd"] == 1
+    assert_bwd_close(got, rmsnorm_bwd_ref(x, s, g), x, s, g)
+    ref = [x.clone().requires_grad_(), s.clone().requires_grad_()]
+    want = torch.autograd.grad(rmsnorm_ref(*ref), ref, g)
+    if dtype == torch.float32:
+        assert_bwd_close(got, want, x, s, g)
+        return
+    torch.testing.assert_close(got[0].float(), want[0].float(), atol=2e-2,
+                               rtol=2e-2)
+    terms = (g.float() * rmsnorm_ref(x, torch.ones_like(s)).float()).abs()
+    room = dscale_room(x, g) + 2.0 ** -8 * terms.sum(0) \
+        + 8e-3 * want[1].float().abs()
+    err = (got[1].float() - want[1].float()).abs()
+    assert bool((err <= room + 1e-6).all()), float((err - room).max())
+
+
+def test_rmsnorm_bwd_refuses_what_it_does_not_take(cuda):
+    x, s, g = _bwd_inputs(cuda, 4, 960, torch.bfloat16, seed=23)
+    for bad in ((x, s, g.float()), (x, s.float(), g), (x, s, g[:2]),
+                (x.t().contiguous().t(), s, g)):
+        with pytest.raises(ValueError):
+            rmsnorm_bwd_cuda(*bad)
+    flat = torch.zeros((2 * 960 + 8,), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        rmsnorm_bwd_cuda(flat[1:1 + 960].view(1, 960), s, g[:1])
+
+
+def test_card_backward_reaches_every_parameter(cuda):
+    """A reduced dense model's loss on the card: every parameter gets a
+    finite gradient (a kernel that cut the graph would leave those below
+    it with none), the backward kernel runs once a norm (2L+1) and the
+    forward kernel once a norm plus once a recomputed layer norm (remat);
+    the loss and gradients agree with the same weights on the host (each
+    gradient within 5e-2 of its norm: bf16 sums in other orders)."""
+    cfg = get_arch("smollm-360m").reduced()
+    host = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(8)
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab, (2, 24)))
+    batch = {"tokens": toks, "labels": toks.roll(-1, dims=1)}
+    runs = []
+    for dev in ("cpu", cuda):
+        params = _tree_map(lambda t: t.detach().to(dev).requires_grad_(),
+                           host)
+        leaves = _tree_leaves(params)
+        reset_launch_counts()
+        loss = T.loss_fn(cfg)(params, {k: v.to(dev) for k, v in
+                                       batch.items()})
+        loss.backward()
+        runs.append((float(loss.detach()), [p.grad for p in leaves],
+                     launch_counts()))
+    (hl, hg, _), (cl, cg, counts) = runs
+    n = 2 * cfg.n_layers + 1
+    assert counts["rmsnorm_bwd"] == n
+    assert counts["rmsnorm"] == n + 2 * cfg.n_layers
+    assert abs(cl - hl) < 5e-2
+    for a, b in zip(cg, hg):
+        assert a is not None and bool(torch.isfinite(a.float()).all())
+        a, b = a.float().cpu(), b.float()
+        assert float((a - b).norm()) <= 5e-2 * float(b.norm()) + 1e-6
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in _tree_leaves(v)]
+    return [tree]
+
+
+@pytest.mark.parametrize("kernel", ["decode_attention",
+                                    "paged_decode_attention", "pmf_conv"])
+def test_forward_only_kernels_refuse_to_cut_the_graph(cuda, kernel):
+    """With grad mode on and an input that requires a gradient, a kernel
+    without a backward raises instead of returning a tensor with no
+    ``grad_fn``; under ``torch.no_grad()`` it runs."""
+    if kernel == "decode_attention":
+        g = torch.Generator(device=cuda).manual_seed(0)
+        q = torch.randn((1, 15, 64), generator=g, device=cuda).bfloat16()
+        kc = torch.randn((1, 64, 5, 64), generator=g, device=cuda).bfloat16()
+        args = [q, kc, kc.clone(), torch.full((1,), 40, dtype=torch.int32,
+                                              device=cuda)]
+        fn = decode_attention_cuda
+    elif kernel == "paged_decode_attention":
+        args, fn = list(_paged(cuda, 2)), paged_decode_attention_cuda
+    else:
+        pet = torch.full((4, 8), 1 / 8, device=cuda)
+        args = [pet, pet.clone(), torch.full((4,), 6.0, device=cuda)]
+        fn = pmf_conv_cuda
+    args[0] = args[0].clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        fn(*args)
+    with torch.no_grad():
+        fn(*args)
+    fn(*[a.detach() for a in args])

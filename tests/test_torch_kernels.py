@@ -653,12 +653,14 @@ class TestWrappers:
         q, kp, vp, tables, lens = _paged_data(1, 2, 8, 4, 2, 16)
         paged_decode_attention(*_t(q, kp, vp, tables, lens))
         decode_attention(*_t(*_decode_data(1, 8, 4, 2, 16)))
-        rmsnorm(torch.ones((2, 8)), torch.ones((8,)))
+        x = torch.ones((2, 8), requires_grad=True)
+        rmsnorm(x, torch.ones((8,))).sum().backward()
         pet, pct, dl = _pmf_data(2, 4, 4)
         pmf_conv(*map(torch.from_numpy, (pet, pct, dl)))
         assert launch_counts() == {"decode_attention": 0,
                                    "paged_decode_attention": 0,
-                                   "rmsnorm": 0, "pmf_conv": 0}
+                                   "rmsnorm": 0, "rmsnorm_bwd": 0,
+                                   "pmf_conv": 0}
 
     @pytest.mark.parametrize("fn,args", [
         (paged_decode_attention_cuda,
