@@ -151,9 +151,31 @@ Phases (any failure exits non-zero and prints no result line):
    * the restart check at ``tests/test_substrate.py``'s tiny trainer: a
      crash at step 4 resumes from step 3 and ends within 2e-2 of an
      uninterrupted run (the max |diff| printed).
+10. ``parallel/`` on ``torch.distributed`` and the counted bounds (after
+   phase 8; the serving and training weights freed), with the launch
+   counters zeroed just before (a) and (b) and read just after:
+   * (a) NCCL at world size 1 (a ``FileStore`` under ``build/``): the
+     gradients of one full-width smollm-360m training step (8 x 1024
+     tokens, remat on: the RMSNorm forward and backward kernels) through
+     ``compressed_psum_grads``: the mean equals dequantize(quantize(g +
+     r)) and the residual g + r minus it, bit for bit; the wall of one
+     call.  ``pipeline_apply`` with one stage holding all 32 layers equals
+     the stack run microbatch by microbatch, bit for bit;
+   * (b) ``roofline.analyze`` over the B=1 decode step at phase 5's shape
+     and the training step at phase 8's: counted dot FLOPs, bytes,
+     t_compute and t_memory beside PERF.md's hand counts and this run's
+     measured device busy time (phases 5 and 8); the kernels' credits
+     must equal the launches a step makes (32 ``decode_attention`` and 65
+     ``rmsnorm`` a decode step, 129 ``rmsnorm`` and 65 ``rmsnorm_bwd`` a
+     training step);
+   * (c) ``python -m repro_torch.launch.dryrun`` for smollm-360m
+     decode_32k and llama3-8b train_4k on the fake 16 x 16 mesh, as
+     concurrent subprocesses on the host: each exits 0 with an ``ok`` row
+     and prints its roofline.
 9. Print tokens/s, decode-step walls, per-kernel launches and times, the
    kernel JSON line (with each kernel's back-to-back wall a call,
-   ``wall_ms``), and last the device JSON line.
+   ``wall_ms``; launches summed over phases 3-8 and 10), and last the
+   device JSON line.
 """
 
 from __future__ import annotations
@@ -2097,6 +2119,281 @@ def train_phase(smi: str) -> dict:
     return {"row": row, "pairs": pairs, "full": full, "restart": rs}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: parallel/ on torch.distributed, the counted bounds, the dry-run
+# ---------------------------------------------------------------------------
+
+PARALLEL_STORE = ROOT / "build" / "phase10_store"
+DRYRUN_OUT = ROOT / "build" / "dryrun_phase10"
+#: the dry-run cells the card's host traces on the fake 256-rank mesh
+DRYRUN_CELLS = (("smollm-360m", "decode_32k"), ("llama3-8b", "train_4k"))
+#: PERF.md's hand counts (PR 17): the weight bytes a B=1 smollm-360m
+#: decode step reads, and the bf16 products of a training step
+HAND_DECODE_BYTES, HAND_TRAIN_FLOPS = 0.724e9, 27e12
+PIPE_MICRO, PIPE_SEQ = 4, 64
+
+
+def _pairs(a, b):
+    """(leaf of a, leaf of b) at every path of the nested dict a."""
+    if isinstance(a, dict):
+        for k in a:
+            yield from _pairs(a[k], b[k])
+    else:
+        yield a, b
+
+
+def _train_inputs(cfg, seed: int):
+    """Full-width params that require gradients and a phase-8-shaped
+    batch (8 x 1024 tokens), on the card."""
+    from repro_torch.bridge import init_params
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        seed), "cuda")
+    for t in _leaves(params):
+        t.requires_grad_()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    toks = torch.randint(0, cfg.vocab, (8, 1025), device="cuda",
+                         generator=gen)
+    return params, {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def compression_check(cfg) -> dict:
+    """One full-width training step's gradients through
+    ``compressed_psum_grads`` over NCCL at world size 1: the mean equals
+    dequantize(quantize(g + r)) bit for bit and the residual g + r minus
+    it exactly; the wall of one call over every gradient."""
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel import compression as C
+    params, batch = _train_inputs(cfg, SEED)
+    T.loss_fn(cfg)(params, batch).backward()
+
+    def take(tree):
+        return {k: take(v) for k, v in tree.items()} \
+            if isinstance(tree, dict) else tree.grad
+    grads = take(params)
+    del params
+    resid = _zero_like_f32(grads)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mean, new_r = C.compressed_psum_grads(grads, resid)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n, differ = 0, 0
+    for (g, m), (_, r) in zip(_pairs(grads, mean), _pairs(grads, new_r)):
+        q, scale = C._quantize(g.float())
+        want = C._dequantize(q, scale)
+        differ += not (torch.equal(m, want)
+                       and torch.equal(r, g.float() - want))
+        n += g.numel()
+    if differ:
+        raise AssertionError(f"compressed_psum_grads at world size 1 "
+                             f"differs from dequantize(quantize(g)) in "
+                             f"{differ} leaves")
+    return {"n": n, "leaves": len(list(_leaves(grads))), "wall_s": wall}
+
+
+def _zero_like_f32(tree):
+    if isinstance(tree, dict):
+        return {k: _zero_like_f32(v) for k, v in tree.items()}
+    return torch.zeros(tree.shape, dtype=torch.float32, device=tree.device)
+
+
+def pipeline_check(cfg, params) -> dict:
+    """``pipeline_apply`` with one stage holding every layer of the stack
+    against the stack run microbatch by microbatch: bit for bit."""
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel.pipeline import pipeline_apply
+    blk = T._dense_block(cfg)
+
+    def stack(stage, x):
+        for lp in T._unstack(stage):
+            x = blk(x, lp)
+        return x
+
+    def one_stage(tree):
+        return {k: one_stage(v) for k, v in tree.items()} \
+            if isinstance(tree, dict) else tree[None]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    xs = torch.randn((PIPE_MICRO, 1, PIPE_SEQ, cfg.d_model), device="cuda",
+                     generator=gen).to(torch.bfloat16)
+    with torch.no_grad():
+        got = pipeline_apply(stack, one_stage(params["layers"]), xs)
+        want = torch.stack([stack(params["layers"], x) for x in xs])
+    if not torch.equal(got, want):
+        raise AssertionError(f"pipeline_apply (one stage) differs from the "
+                             f"stack: max |err| {max_err(got, want):.3g}")
+    return {"shape": tuple(xs.shape)}
+
+
+def counted_bounds(cfg) -> dict:
+    """``roofline.analyze`` over a B=1 decode step at phase 5's shape and a
+    training step at phase 8's, on the card; each kernel credited by its
+    wrapper, as many launches as the step makes."""
+    from repro_torch.bridge import init_params
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.optimizers import OptConfig, opt_init
+    from repro_torch.parallel import roofline as RL
+    from repro_torch.train.trainer import make_train_step
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        SEED), "cuda")
+    n_params = sum(t.numel() for t in _leaves(params))
+    rng = np.random.default_rng(SEED + 10)
+    prompt = torch.from_numpy(rng.integers(1, cfg.vocab, SYS_LEN
+                                           + SUFFIX_LEN)).cuda()[None]
+    step = T.decode_fn(cfg)
+    with torch.no_grad():
+        _, cache = T.prefill_fn(cfg)(params, {"tokens": prompt},
+                                     ROUTER_MAX_LEN)
+        tok = prompt[:, -1]
+        step(params, cache, tok)                     # warm
+        torch.cuda.synchronize()
+        decode = RL.analyze(step, params, cache, tok,
+                            model_flops_total=2.0 * n_params, chips=1)
+    del params, cache
+    torch.cuda.empty_cache()
+    params, batch = _train_inputs(cfg, SEED)
+    opt_cfg = OptConfig()
+    opt_state = opt_init(opt_cfg, params)
+    train_step = make_train_step(cfg, opt_cfg)
+    train_step(params, opt_state, batch)             # warm
+    torch.cuda.synchronize()
+    train = RL.analyze(train_step, params, opt_state, batch,
+                       model_flops_total=6.0 * n_params * 8 * 1024, chips=1)
+    del params, opt_state
+    torch.cuda.empty_cache()
+    want = {"decode": {"decode_attention": cfg.n_layers,
+                       "rmsnorm": 2 * cfg.n_layers + 1},
+            "train": {"rmsnorm": 4 * cfg.n_layers + 1,
+                      "rmsnorm_bwd": 2 * cfg.n_layers + 1}}
+    for name, rl in (("decode", decode), ("train", train)):
+        got = {k: rl.kernels.get(k, {}).get("launches", 0)
+               for k in want[name]}
+        if got != want[name]:
+            raise AssertionError(f"the {name} step's kernel credits {got}, "
+                                 f"not {want[name]}")
+        if not (rl.flops > 0 and rl.bytes_accessed > 0):
+            raise AssertionError(f"the {name} step counted nothing")
+    return {"decode": decode, "train": train}
+
+
+def dryrun_cells() -> list[dict]:
+    """``python -m repro_torch.launch.dryrun`` on the fake 16 x 16 mesh for
+    each of ``DRYRUN_CELLS``, as concurrent subprocesses on the host (no
+    card): each exits 0, prints its roofline and writes an ``ok`` row."""
+    DRYRUN_OUT.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    procs = []
+    for arch, shape in DRYRUN_CELLS:
+        out = DRYRUN_OUT / f"{arch}.{shape}.jsonl"
+        out.unlink(missing_ok=True)
+        procs.append((arch, shape, out, time.perf_counter(), subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--out", str(out)], cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    rows = []
+    for arch, shape, out, t0, p in procs:
+        try:
+            stdout, stderr = p.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.communicate()
+            raise
+        wall = time.perf_counter() - t0
+        if p.returncode != 0 or "roofline" not in stdout:
+            raise AssertionError(f"the dry-run of {arch} {shape} exited "
+                                 f"{p.returncode}:\n{stderr[-3000:]}")
+        row = json.loads(out.read_text().splitlines()[-1])
+        if row["status"] != "ok" or row["chips"] != 256:
+            raise AssertionError(f"the dry-run of {arch} {shape}: {row}")
+        rows.append(dict(row, wall_s=wall))
+    return rows
+
+
+def parallel_phase(smi: str, measured: dict) -> dict:
+    """Phase 10: compression and the one-stage pipeline over NCCL at world
+    size 1, the counted bounds of two full-width steps beside the hand
+    counts and the measured device time, and the dry-run CLI."""
+    import torch.distributed as dist
+    from repro_torch import kernels
+    from repro_torch.configs.registry import get_arch
+    t00 = time.perf_counter()
+    mc = get_arch("smollm-360m")
+    log(f"phase 10: parallel/ on torch.distributed and the counted bounds "
+        f"({smi})")
+    PARALLEL_STORE.unlink(missing_ok=True)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(PARALLEL_STORE), 1), rank=0, world_size=1,
+        device_id=torch.device("cuda", 0))
+    try:
+        kernels.reset_launch_counts()
+        comp = compression_check(mc)
+        from repro_torch.bridge import init_params
+        params = init_params(mc, torch.Generator(device="cuda").manual_seed(
+            SEED), "cuda")
+        pipe = pipeline_check(mc, params)
+        del params
+        torch.cuda.empty_cache()
+        bounds = counted_bounds(mc)
+        counts = kernels.launch_counts()
+    finally:
+        dist.destroy_process_group()
+        PARALLEL_STORE.unlink(missing_ok=True)
+    for name in ("decode_attention", "rmsnorm", "rmsnorm_bwd"):
+        if counts[name] == 0:
+            raise AssertionError(f"phase 10 never launched {name}")
+    log(f"  (a) NCCL, world size 1: compressed_psum_grads over one "
+        f"full-width training step's {comp['n'] / 1e6:.1f} M gradients "
+        f"({comp['leaves']} leaves): mean == dequantize(quantize(g + r)) "
+        f"and the residual exact, bit for bit; one call "
+        f"{1e3 * comp['wall_s']:.3f} ms wall")
+    log(f"      pipeline_apply, one stage holding all {mc.n_layers} layers, "
+        f"{PIPE_MICRO} microbatches {pipe['shape'][1:]}: equal to the stack "
+        f"bit for bit")
+    hand = {"decode": (None, HAND_DECODE_BYTES), "train": (HAND_TRAIN_FLOPS,
+                                                           None)}
+    for name, rl in bounds.items():
+        hf, hb = hand[name]
+        busy = measured.get(name)
+        log(f"  (b) {name} step (smollm-360m, full width"
+            + (", B=1, a 38-token prompt in a 64-position cache)"
+               if name == "decode" else ", 8 x 1024 tokens, remat on, "
+               "AdamW)")
+            + f": counted {rl.flops / 1e12:.6f} TFLOP (dot), "
+            f"{rl.bytes_accessed / 1e9:.6f} GB; t_compute "
+            f"{1e3 * rl.t_compute:.6f} ms, t_memory "
+            f"{1e3 * rl.t_memory:.6f} ms (bound {1e3 * rl.step_time:.6f} "
+            f"ms, {rl.bottleneck})")
+        log(f"      hand count (PERF.md): "
+            + (f"{hf / 1e12:.0f} TFLOP, {hf / H100_BF16_FLOPS * 1e3:.3f} ms"
+               if hf else f"{hb / 1e9:.3f} GB, "
+               f"{hb / HBM_BYTES_PER_S * 1e3:.3f} ms")
+            + "; measured device busy this run "
+            + ("not measured" if busy is None else f"{busy:.3f} ms"))
+        log(f"      kernel credits: " + ", ".join(
+            f"{k} {v['launches']} launches, {v['bytes'] / 1e6:.3f} MB, "
+            f"{v['flops'] / 1e9:.4f} GFLOP" for k, v in
+            sorted(rl.kernels.items())))
+    t0 = time.perf_counter()
+    rows = dryrun_cells()
+    log(f"  (c) python -m repro_torch.launch.dryrun on the fake 16 x 16 "
+        f"mesh (host only, {time.perf_counter() - t0:.1f} s):")
+    for r in rows:
+        rl = r["roofline"]
+        log(f"      {r['arch']} {r['shape']}: ok in {r['wall_s']:.1f} s "
+            f"(trace {r['trace_s']} s, units {r['traced_units']}); per rank "
+            f"{rl['flops_per_chip'] / 1e12:.4f} TFLOP, "
+            f"{rl['bytes_per_chip'] / 1e9:.3f} GB, collectives "
+            f"{rl['collective_bytes_per_chip'] / 1e9:.3f} GB; t_compute "
+            f"{1e3 * rl['t_compute_s']:.3f} ms, t_memory "
+            f"{1e3 * rl['t_memory_s']:.3f} ms, t_collective "
+            f"{1e3 * rl['t_collective_s']:.3f} ms ({rl['bottleneck']}); "
+            f"memory {r['memory']}")
+    log(f"    main-path kernel launches: {counts}")
+    log(f"  phase 10 took {time.perf_counter() - t00:.1f} s")
+    return {"counts": counts, "bounds": bounds, "dryrun": rows,
+            "compression": comp}
+
+
 def decode_step_profile(mc, params, n_steps: int = 10,
                         paged: bool = True) -> dict:
     """Device busy time of steady decode steps at the smoke's shapes: the
@@ -2329,6 +2626,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     train = train_phase(smi)
     rows.append(train["row"])
+    smollm = next(r for r in fam["rows"] if r["arch"] == "smollm-360m")
+    par = parallel_phase(smi, {"decode": smollm["profile"]["busy_ms"],
+                               "train": train["full"]["busy_ms"]})
 
     st = res["stats"]
     log(f"phase 9 ({smi}):")
@@ -2370,7 +2670,7 @@ def main() -> int:
     for r in rows:
         r["launches"] = sum(c[r["name"]] for c in (
             res["counts"], rr["counts"], moe["counts"], cal["counts"],
-            train["full"]["counts"]))
+            train["full"]["counts"], par["counts"]))
         r.pop("shape")
         r["wall_ms"] = r.pop("wall")["ms"]
     print(json.dumps({"kernels": rows}), flush=True)

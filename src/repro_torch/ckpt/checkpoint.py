@@ -11,8 +11,13 @@ Format: ``arrays.npz`` (one array per leaf, keyed by its ``/``-joined path)
 plus ``manifest.json`` with the step and, under ``dtypes``, the true dtype
 of each leaf that npz cannot hold: bf16 is stored as its ``uint16`` bits,
 as JAX's ``_encode`` writes it, and read back through ``int16`` into
-``torch.bfloat16`` (no ``ml_dtypes``).  At world size 1 there is nothing
-to re-shard: JAX's ``shardings=`` has no counterpart here.
+``torch.bfloat16`` (no ``ml_dtypes``).
+
+* **Elastic**: ``restore(..., shardings=)`` places each leaf as a DTensor
+  on a ``DeviceMesh``, which may differ from the mesh that saved it (every
+  rank reads the file and keeps its own shard).  A DTensor leaf is saved
+  whole (``full_tensor``, a collective every rank joins), and only rank 0
+  of a process group writes.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 _SEP = "/"
 
@@ -32,6 +38,8 @@ _SEP = "/"
 def _host(leaf) -> tuple[np.ndarray, str | None]:
     """A copy of one leaf on the host, as npz stores it, and the dtype name
     the manifest records for it (None for a dtype npz holds)."""
+    if hasattr(leaf, "full_tensor"):            # a DTensor: gather it
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
@@ -122,6 +130,8 @@ class CheckpointManager:
         returns, also when the write itself runs in a thread."""
         self.wait()              # never two writers racing on one step
         host = _flatten(tree)
+        if dist.is_initialized() and dist.get_rank() != 0:
+            return               # rank 0 writes what every rank gathered
         if blocking:
             self._write(step, host, extra or {})
         else:
@@ -150,10 +160,14 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, like, step: int | None = None, device=None):
+    def restore(self, like, step: int | None = None, device=None,
+                shardings=None):
         """Restore into the structure of ``like``: (tree of tensors,
         manifest).  Each leaf keeps the checkpoint's dtype and lands on
-        ``device``, or where its ``like`` leaf lives."""
+        ``device``, or where its ``like`` leaf lives.  ``shardings``, a
+        tree like ``like`` of ``(DeviceMesh, placements)`` pairs, makes
+        each leaf a DTensor placed so (the mesh may differ from the one
+        that saved: an elastic restart)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.dir}")
@@ -163,4 +177,20 @@ class CheckpointManager:
         dtypes = manifest.get("dtypes", {})
         with np.load(os.path.join(path, "arrays.npz")) as z:
             flat = {k: _decode(z[k], dtypes.get(k)) for k in z.files}
-        return _unflatten_into(flat, like, device), manifest
+        tree = _unflatten_into(flat, like, device)
+        if shardings is not None:
+            tree = _place(tree, shardings)
+        return tree, manifest
+
+
+def _place(tree, shardings):
+    """Each leaf of ``tree`` as a DTensor on its ``(mesh, placements)``
+    from ``shardings``; every rank holds the whole leaf, so each keeps its
+    own shard and nothing crosses the wire."""
+    from torch.distributed.tensor import distribute_tensor
+    if isinstance(tree, dict):
+        return {k: _place(v, shardings[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_place(v, s) for v, s in zip(tree, shardings))
+    mesh, placements = shardings
+    return distribute_tensor(tree, mesh, placements, src_data_rank=None)

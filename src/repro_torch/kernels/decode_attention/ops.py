@@ -24,6 +24,7 @@ from ..build import check, current_stream, library, refuse_grad
 from .ref import (SPLIT_GRANULE, SPLIT_RANKS, decode_attention_ref,
                   paged_decode_attention_ref)
 from ...obs.profiling import profiled
+from ...parallel import op_cost
 
 __all__ = ["SPLIT_GRANULE", "SPLIT_RANKS", "decode_attention",
            "decode_attention_cuda", "paged_decode_attention",
@@ -82,6 +83,16 @@ def _check_group(g: int, hd: int) -> None:
                          f"group*head_dim <= 1024, not {hd} and {g * hd}")
 
 
+def _credit(name, q, out, index, hkv: int, hd: int, keys) -> None:
+    """A decode-attention launch to the op counter: the keys it reads
+    (``keys()``, read on the host outside the counter) and their values,
+    q, out and the index tensors; the two products' FLOPs."""
+    n = op_cost.untracked(keys)
+    op_cost.credit(name, (), (), flops=4.0 * n * q.shape[1] * hd,
+                   nbytes=2 * q.nbytes + 2 * n * hkv * hd * q.element_size()
+                   + op_cost.tensor_bytes(index))
+
+
 def decode_attention_cuda(q, k_cache, v_cache, lengths):
     """The CUDA kernel.  q (B, H, hd) bf16; k/v_cache (B, S, Hkv, hd) bf16;
     lengths (B,) int32 -> (B, H, hd) bf16.
@@ -115,6 +126,9 @@ def decode_attention_cuda(q, k_cache, v_cache, lengths):
         lengths.data_ptr(), out.data_ptr(), b, s, hkv, g, hd,
         1.0 / math.sqrt(hd), current_stream(q.device))
     decode_attention_cuda.launches += 1
+    if op_cost.active():
+        _credit("decode_attention", q, out, lengths, hkv, hd,
+                lambda: int(lengths.clamp(max=s).sum()))
     check(err, "decode_attention")
     return out
 
@@ -170,6 +184,9 @@ def paged_decode_attention_cuda(q, k_pages, v_pages, block_tables, lengths):
         b, hkv, g, hd, ps, block_tables.shape[1], 1.0 / math.sqrt(hd),
         current_stream(q.device))
     paged_decode_attention_cuda.launches += 1
+    if op_cost.active():
+        _credit("paged_decode_attention", q, out, (lengths, block_tables),
+                hkv, hd, lambda: int(lengths.sum()))
     check(err, "paged_decode_attention")
     return out
 

@@ -16,6 +16,7 @@ from ..build import check, current_stream, library, refuse_grad
 from .ref import pmf_conv_ref
 from ...device import resolve_device
 from ...obs.profiling import profiled
+from ...parallel import op_cost
 
 __all__ = ["pmf_conv", "pmf_conv_cuda", "pack_pmfs", "batched_success"]
 
@@ -44,6 +45,8 @@ def pmf_conv_cuda(pet, pct, dl, cut=None):
         pet.data_ptr(), pct.data_ptr(), dl.data_ptr(), cut.data_ptr(),
         out.data_ptr(), suc.data_ptr(), n, le, lc, current_stream(pet.device))
     pmf_conv_cuda.launches += 1
+    if op_cost.active():
+        op_cost.credit("pmf_conv", (pet, pct, dl, cut), (out, suc))
     check(err, "pmf_conv")
     return out, suc
 

@@ -18,6 +18,7 @@ import torch
 from ..build import check, current_stream, library
 from .ref import rmsnorm_bwd_ref, rmsnorm_ref
 from ...obs.profiling import profiled
+from ...parallel import op_cost
 
 __all__ = ["MAX_D", "BWD_MAX_BLOCKS", "RMSNormFunction", "check_width",
            "rmsnorm", "rmsnorm_bwd_cuda", "rmsnorm_cuda"]
@@ -70,6 +71,8 @@ def rmsnorm_cuda(x, scale, eps: float = 1e-5):
         err = getattr(library(), _ENTRY[x.dtype])(
             xp, sp, out.data_ptr(), rows, d, eps, current_stream(x.device))
         rmsnorm_cuda.launches += 1
+        if op_cost.active():
+            op_cost.credit("rmsnorm", (x, scale), out)
         check(err, "rmsnorm")
     return out
 
@@ -110,6 +113,8 @@ def rmsnorm_bwd_cuda(x, scale, g, eps: float = 1e-5):
         xp, sp, gp, dx.data_ptr(), dscale.data_ptr(), scratch.data_ptr(),
         scratch.shape[0], rows, d, eps, current_stream(x.device))
     rmsnorm_bwd_cuda.launches += 1
+    if op_cost.active():
+        op_cost.credit("rmsnorm_bwd", (x, scale, g), (dx, dscale))
     check(err, "rmsnorm_bwd")
     return dx, dscale
 

@@ -25,6 +25,8 @@ import torch.nn.functional as F
 from ..kernels.decode_attention.ops import \
     decode_attention as _decode_attention_kernel
 from ..kernels.rmsnorm.ops import rmsnorm as _rmsnorm_kernel
+from ..parallel import ctx as pctx
+from ..parallel import op_cost
 
 # ---------------------------------------------------------------------------
 # init
@@ -50,6 +52,8 @@ class ParamInit:
         return out
 
     def _fill(self, out, std: float) -> None:
+        if out.is_meta:                 # shapes only (``init_abstract``)
+            return
         if out.numel() <= DRAW_CHUNK or out.dim() == 0:
             out.copy_(torch.randn(out.shape, generator=self.gen,
                                   device=self.device,
@@ -101,14 +105,14 @@ class ParamInit:
 
 
 def dense(p, x):
-    y = x @ p["w"]
+    y = pctx.matmul(x, p["w"])
     if "b" in p:
         y = y + p["b"]
     return y
 
 
 def embed(p, tokens):
-    return p["emb"][tokens]
+    return pctx.embedding(p["emb"], tokens)
 
 
 def rmsnorm(p, x, eps: float = 1e-5):
@@ -150,8 +154,8 @@ def _repeat_kv(k, groups: int):
     if groups == 1:
         return k
     b, s, h, d = k.shape
-    return k[:, :, :, None, :].expand(b, s, h, groups, d) \
-        .reshape(b, s, h * groups, d)
+    return pctx.reshape(k[:, :, :, None, :].expand(b, s, h, groups, d),
+                        (b, s, h * groups, d))
 
 
 def full_attention(q, k, v, causal: bool = True, q_offset: int = 0):
@@ -188,11 +192,12 @@ def _flash_fwd(q, k, v, causal, sk, q_block, kv_block):
     outs, ms, ls = [], [], []
     for qi in range(nq):
         q_tile = q[:, qi * q_block:(qi + 1) * q_block]
-        m = torch.full((b, h, q_block), -1e30, dtype=torch.float32,
-                       device=q.device)
-        l = torch.zeros((b, h, q_block), dtype=torch.float32, device=q.device)
-        acc = torch.zeros((b, h, q_block, hd), dtype=torch.float32,
-                          device=q.device)
+        m = pctx.shard_bh(torch.full((b, h, q_block), -1e30,
+                                     dtype=torch.float32, device=q.device))
+        l = pctx.shard_bh(torch.zeros((b, h, q_block), dtype=torch.float32,
+                                      device=q.device))
+        acc = pctx.shard_bh(torch.zeros((b, h, q_block, hd),
+                                        dtype=torch.float32, device=q.device))
         for kj in range(nk):
             k_tile = k[:, kj * kv_block:(kj + 1) * kv_block]
             v_tile = v[:, kj * kv_block:(kj + 1) * kv_block]
@@ -223,9 +228,9 @@ def _flash_bwd(q, k, v, out, m, l, dout, causal, sk, q_block, kv_block):
     scale = 1.0 / math.sqrt(hd)
     l_safe = torch.clamp(l, min=1e-20)
     delta = (dout.float() * out.float()).sum(dim=-1).transpose(1, 2)
-    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
-    dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
-    dv = torch.zeros(v.shape, dtype=torch.float32, device=q.device)
+    dq = torch.zeros_like(q, dtype=torch.float32)
+    dk = torch.zeros_like(k, dtype=torch.float32)
+    dv = torch.zeros_like(v, dtype=torch.float32)
     for qi in range(nq):
         qs = slice(qi * q_block, (qi + 1) * q_block)
         q_tile = q[:, qs]
@@ -255,15 +260,17 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, sk, q_block, kv_block):
-        out, m, l = _flash_fwd(q, k, v, causal, sk, q_block, kv_block)
+        out, m, l = op_cost.region("flash_attention", _flash_fwd, q, k, v,
+                                   causal, sk, q_block, kv_block)
         ctx.save_for_backward(q, k, v, out, m, l)
         ctx.blocking = (causal, sk, q_block, kv_block)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        grads = _flash_bwd(*ctx.saved_tensors, dout.contiguous(),
-                           *ctx.blocking)
+        grads = op_cost.region("flash_attention_bwd", _flash_bwd,
+                               *ctx.saved_tensors, dout.contiguous(),
+                               *ctx.blocking)
         return grads + (None,) * 4
 
 
@@ -280,9 +287,8 @@ def flash_attention(q, k, v, causal: bool = True, q_block: int = 512,
     q_block = min(q_block, sq)
     kv_block = min(kv_block, sk)
     pq, pk = (-sq) % q_block, (-sk) % kv_block
-    qp = F.pad(q, (0, 0, 0, 0, 0, pq))
-    kp = F.pad(k, (0, 0, 0, 0, 0, pk))
-    vp = F.pad(v, (0, 0, 0, 0, 0, pk))
+    qp = F.pad(q, (0, 0, 0, 0, 0, pq)) if pq else q
+    kp, vp = (F.pad(a, (0, 0, 0, 0, 0, pk)) if pk else a for a in (k, v))
     # padded keys are masked by the true sk in each tile's mask
     out = FlashAttention.apply(qp, kp, vp, causal, sk, q_block, kv_block)
     return out[:, :sq]
@@ -315,7 +321,8 @@ def decode_attention_plain(q, k_cache, v_cache, length, window: int = 0):
     b, smax, hkv, hd = k_cache.shape
     h = q.shape[1]
     groups = h // hkv
-    qg = q.reshape(b, hkv, groups, hd)
+    # batch over DP, heads whole: the query meets a sequence-sharded cache
+    qg = pctx.shard_batch_seq(pctx.reshape(q, (b, hkv, groups, hd)))
     scale = 1.0 / math.sqrt(hd)
     s = torch.einsum("bkgd,bskd->bkgs", qg, k_cache).float() * scale
     pos = torch.arange(smax, device=q.device)
@@ -325,7 +332,7 @@ def decode_attention_plain(q, k_cache, v_cache, length, window: int = 0):
     s = s.masked_fill(~mask[:, None, None, :], float("-inf"))
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", p.to(v_cache.dtype), v_cache)
-    return out.reshape(b, h, hd)
+    return pctx.reshape(out, (b, h, hd))
 
 
 def attention_apply(p, x, cfg, positions=None, kv_cache=None, length=None,
@@ -349,22 +356,24 @@ def attention_apply(p, x, cfg, positions=None, kv_cache=None, length=None,
     hd = cfg.resolved_head_dim
     h, hkv = cfg.n_heads, cfg.n_kv_heads
 
-    q = dense(p["wq"], x).reshape(b, s, h, hd)
+    q = pctx.reshape(dense(p["wq"], x), (b, s, h, hd))
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :] + q_offset
 
     if memory is not None:
         sm = memory.shape[1]
-        k = dense(p["wk"], memory).reshape(b, sm, hkv, hd)
-        v = dense(p["wv"], memory).reshape(b, sm, hkv, hd)
-        out = full_attention(q, _repeat_kv(k, h // hkv),
-                             _repeat_kv(v, h // hkv), causal=False)
-        out = dense(p["wo"], out.reshape(b, s, h * hd))
+        k = pctx.reshape(dense(p["wk"], memory), (b, sm, hkv, hd))
+        v = pctx.reshape(dense(p["wv"], memory), (b, sm, hkv, hd))
+        q, kf, vf = map(pctx.shard_heads, (q, _repeat_kv(k, h // hkv),
+                                           _repeat_kv(v, h // hkv)))
+        out = pctx.per_shard(full_attention, q, kf, vf, causal=False)
+        out = pctx.shard_hidden(dense(p["wo"],
+                                      pctx.reshape(out, (b, s, h * hd))))
         return (out, (k, v)) if kv_out else (out, None)
 
     if kv_cache is None:
-        k = dense(p["wk"], x).reshape(b, s, hkv, hd)
-        v = dense(p["wv"], x).reshape(b, s, hkv, hd)
+        k = pctx.reshape(dense(p["wk"], x), (b, s, hkv, hd))
+        v = pctx.reshape(dense(p["wv"], x), (b, s, hkv, hd))
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
         if prefix_kv is not None:
@@ -375,30 +384,33 @@ def attention_apply(p, x, cfg, positions=None, kv_cache=None, length=None,
             if kv_len is not None and kv_len > k.shape[1]:
                 pad = (0, 0, 0, 0, 0, kv_len - k.shape[1])
                 ka, va = F.pad(k, pad), F.pad(v, pad)
-            out = full_attention(q, _repeat_kv(ka, h // hkv),
-                                 _repeat_kv(va, h // hkv), causal=True,
+            q, kf, vf = map(pctx.shard_heads, (q, _repeat_kv(ka, h // hkv),
+                                               _repeat_kv(va, h // hkv)))
+            out = pctx.per_shard(full_attention, q, kf, vf, causal=True,
                                  q_offset=q_offset)
         else:
-            out = flash_attention(q, _repeat_kv(k, h // hkv),
-                                  _repeat_kv(v, h // hkv), causal=True,
-                                  q_block=cfg.q_block, kv_block=cfg.kv_block)
-        out = dense(p["wo"], out.reshape(b, s, h * hd))
+            q, kf, vf = map(pctx.shard_heads, (q, _repeat_kv(k, h // hkv),
+                                               _repeat_kv(v, h // hkv)))
+            out = pctx.per_shard(flash_attention, q, kf, vf, causal=True,
+                                 q_block=cfg.q_block, kv_block=cfg.kv_block)
+        out = pctx.shard_hidden(dense(p["wo"],
+                                      pctx.reshape(out, (b, s, h * hd))))
         return (out, (k, v)) if kv_out else (out, None)
 
     # single-step decode
     k_cache, v_cache = kv_cache
     q = apply_rope(q, positions, cfg.rope_theta)            # (B,1,H,hd)
-    k_new = apply_rope(dense(p["wk"], x).reshape(b, 1, hkv, hd), positions,
-                       cfg.rope_theta)
-    v_new = dense(p["wv"], x).reshape(b, 1, hkv, hd)
+    k_new = apply_rope(pctx.reshape(dense(p["wk"], x), (b, 1, hkv, hd)),
+                       positions, cfg.rope_theta)
+    v_new = pctx.reshape(dense(p["wv"], x), (b, 1, hkv, hd))
     # write the new KV at `length` (per-batch position): the values the
     # JAX one-hot scatter produces, written in place
-    rows = torch.arange(b, device=x.device)
-    k_cache[rows, length.long()] = k_new[:, 0].to(k_cache.dtype)
-    v_cache[rows, length.long()] = v_new[:, 0].to(v_cache.dtype)
+    rows, pos = torch.arange(b, device=x.device), length.long()
+    pctx.write_rows(k_cache, rows, pos, k_new[:, 0].to(k_cache.dtype))
+    pctx.write_rows(v_cache, rows, pos, v_new[:, 0].to(v_cache.dtype))
     out = decode_attention(q[:, 0], k_cache, v_cache, length + 1,
                            window=cfg.sliding_window)
-    out = dense(p["wo"], out.reshape(b, 1, h * hd))
+    out = dense(p["wo"], pctx.reshape(out, (b, 1, h * hd)))
     return out, (k_cache, v_cache)
 
 
@@ -408,8 +420,8 @@ def attention_apply(p, x, cfg, positions=None, kv_cache=None, length=None,
 
 
 def mlp_apply(p, x):
-    return dense(p["w_down"], F.silu(dense(p["w_gate"], x))
-                 * dense(p["w_up"], x))
+    h = pctx.shard_ffn(F.silu(dense(p["w_gate"], x)) * dense(p["w_up"], x))
+    return pctx.shard_hidden(dense(p["w_down"], h))
 
 
 def cross_entropy_loss(logits, labels, ignore_id: int = -1):

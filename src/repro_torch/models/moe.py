@@ -4,8 +4,9 @@ PyTorch, mirroring ``repro.models.moe``.
 Top-k routing with capacity dropping; optional always-on shared experts
 (DeepSeek-MoE).  Tokens are reshaped into groups so the dispatch tensor is
 (G, Sg, E, C), bounded per group.  The dispatch and combine products stay
-``torch.einsum``, as the JAX package leaves them to XLA; at one device the
-expert axis is not sharded.
+einsums, as the JAX package leaves them to XLA (``torch.einsum``; on a
+mesh, ``parallel.ctx.einsum``, each rank contracting its experts' shard:
+expert parallelism).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..parallel import ctx as pctx
 from .layers import mlp_apply
 
 
@@ -41,15 +43,15 @@ def moe_apply(p, x, moe_cfg):
     b, s, d = x.shape
     e, k = moe_cfg.n_experts, moe_cfg.top_k
     sg = min(moe_cfg.group_size, b * s)
-    tokens = x.reshape(-1, d)
+    tokens = pctx.reshape(x, (b * s, d))
     n = tokens.shape[0]
     pad = (-n) % sg
     if pad:
         tokens = F.pad(tokens, (0, 0, 0, pad))
     g = tokens.shape[0] // sg
-    xs = tokens.reshape(g, sg, d)
+    xs = pctx.shard_batch_seq(pctx.reshape(tokens, (g, sg, d)))
 
-    logits = xs.float() @ p["router"]["w"]                          # (G,Sg,E)
+    logits = pctx.matmul(xs.float(), p["router"]["w"])              # (G,Sg,E)
     probs = torch.softmax(logits, dim=-1)
     # top-k with ``lax.top_k``'s order: descending, the lower expert first
     # among equal chances (pad tokens' uniform routing has such ties)
@@ -71,20 +73,26 @@ def moe_apply(p, x, moe_cfg):
     # (``jax.nn.one_hot`` of an out-of-range index is all zeros)
     slots = torch.arange(cap, device=x.device, dtype=pos.dtype)
     pos_oh = (pos[..., None] == slots).float()                      # (G,Sg,k,C)
-    combine = torch.einsum("gske,gskc,gsk->gsec", sel_onehot, pos_oh,
-                           gate_vals)
+    combine = pctx.einsum("gske,gskc,gsk->gsec", sel_onehot, pos_oh,
+                          gate_vals)
     dispatch = (combine > 0).to(x.dtype)
 
-    expert_in = torch.einsum("gsec,gsd->egcd", dispatch, xs)        # (E,G,C,D)
-    h = F.silu(torch.einsum("egcd,edf->egcf", expert_in, p["w_gate"])) \
-        * torch.einsum("egcd,edf->egcf", expert_in, p["w_up"])
-    expert_out = torch.einsum("egcf,efd->egcd", h, p["w_down"])     # (E,G,C,D)
-    out = torch.einsum("gsec,egcd->gsd", combine.to(x.dtype), expert_out)
+    # expert-parallel segment: E over 'model' (the redistributions are
+    # the all-to-alls)
+    expert_in = pctx.shard_experts(
+        pctx.einsum("gsec,gsd->egcd", dispatch, xs))               # (E,G,C,D)
+    h = pctx.shard_experts(
+        F.silu(pctx.einsum("egcd,edf->egcf", expert_in, p["w_gate"]))
+        * pctx.einsum("egcd,edf->egcf", expert_in, p["w_up"]))
+    expert_out = pctx.shard_experts(
+        pctx.einsum("egcf,efd->egcd", h, p["w_down"]))             # (E,G,C,D)
+    out = pctx.shard_batch_seq(
+        pctx.einsum("gsec,egcd->gsd", combine.to(x.dtype), expert_out))
 
-    out = out.reshape(-1, d)
+    out = pctx.reshape(out, (g * sg, d))
     if pad:
         out = out[:n]
-    out = out.reshape(b, s, d)
+    out = pctx.reshape(out, (b, s, d))
 
     if moe_cfg.n_shared and "shared" in p:
         out = out + mlp_apply(p["shared"], x)

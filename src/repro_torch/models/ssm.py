@@ -15,6 +15,9 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..parallel import ctx as pctx
+from ..parallel import op_cost
+
 
 def _dims(d_model: int, ssm_cfg) -> tuple[int, int, int]:
     d_inner = ssm_cfg.expand * d_model
@@ -44,6 +47,8 @@ def mamba2_init(init, d_model: int, ssm_cfg, lead: tuple = ()) -> dict:
 
 def _pad_seq(a, pad: int, value: float = 0.0):
     """Pad axis 1 of ``a`` with ``pad`` steps of ``value``."""
+    if not pad:
+        return a
     widths = [0, 0] * (a.dim() - 2) + [0, pad]
     return F.pad(a, widths, value=value)
 
@@ -78,8 +83,8 @@ def _ssd_scan(state, xh, bh, ch, dt, decay, ck: int):
         y_intra = torch.einsum("bkjh,bkjh,bjhp->bkhp", scores, w, xin)
         # state update to pass on
         wend = torch.exp(cum[:, -1:, :] - cum)                      # (B,ck,H)
-        state = state * total[..., None, None] + torch.einsum(
-            "bkhp,bkhn,bkh->bhpn", xin, bc, wend)
+        state = pctx.shard_bh(state * total[..., None, None] + torch.einsum(
+            "bkhp,bkhn,bkh->bhpn", xin, bc, wend))
         ys.append(y_state + y_intra)
     return torch.cat(ys, dim=1)[:, :s], state
 
@@ -94,7 +99,7 @@ def mamba2_apply(p, x, ssm_cfg, state=None, conv_state=None):
     n = ssm_cfg.state_dim
     cw = ssm_cfg.conv_width
 
-    proj = x @ p["in_proj"]["w"]
+    proj = pctx.shard_ffn(pctx.matmul(x, p["in_proj"]["w"]))
     z, xs, b, c, dt = torch.split(
         proj, [d_inner, d_inner, n_heads * n, n_heads * n, n_heads], dim=-1)
 
@@ -109,15 +114,16 @@ def mamba2_apply(p, x, ssm_cfg, state=None, conv_state=None):
     windows = xs_pad[:, idx]                                  # (B, S, cw, d_inner)
     xs = F.silu(torch.einsum("bscd,cd->bsd", windows, p["conv_w"]))
 
-    xh = xs.reshape(bsz, s, n_heads, head_d)
-    bh = b.reshape(bsz, s, n_heads, n).float()
-    ch = c.reshape(bsz, s, n_heads, n).float()
+    xh = pctx.reshape(xs, (bsz, s, n_heads, head_d))
+    bh = pctx.reshape(b, (bsz, s, n_heads, n)).float()
+    ch = pctx.reshape(c, (bsz, s, n_heads, n)).float()
     dt = F.softplus(dt.float() + p["dt_bias"])                    # (B,S,H)
     decay = torch.exp(-torch.exp(p["a_log"])[None, None] * dt)    # (B,S,H)
 
     if state is None:
         state = torch.zeros((bsz, n_heads, head_d, n), dtype=torch.float32,
                             device=x.device)
+    state = pctx.shard_bh(state)
 
     if s == 1:
         # decode: one selective state update
@@ -126,12 +132,13 @@ def mamba2_apply(p, x, ssm_cfg, state=None, conv_state=None):
         state = state * decay[:, 0][..., None, None] + upd
         y = torch.einsum("bhpn,bhn->bhp", state, ch[:, 0])[:, None]
     else:
-        y, state = _ssd_scan(state, xh, bh, ch, dt, decay, ssm_cfg.chunk)
+        y, state = op_cost.region("ssd_scan", _ssd_scan, state, xh, bh, ch,
+                                  dt, decay, ssm_cfg.chunk)
 
     y = y + p["d_skip"][None, None, :, None] * xh.float()
-    y = y.reshape(bsz, s, d_inner).to(x.dtype)
+    y = pctx.reshape(y, (bsz, s, d_inner)).to(x.dtype)
     # gated RMSNorm (Mamba2)
     yf = y.float() * F.silu(z.float())
     var = torch.mean(yf * yf, dim=-1, keepdim=True)
     y = (yf * torch.rsqrt(var + 1e-5)).to(x.dtype) * p["norm_scale"]
-    return y @ p["out_proj"]["w"], state, new_conv_state
+    return pctx.matmul(y, p["out_proj"]["w"]), state, new_conv_state

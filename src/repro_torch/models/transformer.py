@@ -28,6 +28,7 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 from ..kernels.decode_attention.ops import paged_decode_attention
+from ..parallel import ctx as pctx
 from . import xlstm as xl
 from .layers import (ParamInit, apply_rope, attention_apply,
                      decode_attention, dense, embed, mlp_apply, rmsnorm)
@@ -124,6 +125,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     return params
 
 
+def init_abstract(cfg: ModelConfig) -> dict:
+    """The parameter tree on the ``meta`` device: shapes and dtypes, no
+    allocation (the dry-run's ``jax.eval_shape`` of ``init_params``)."""
+    return init_params(cfg, None, "meta")
+
+
 def _unstack(tree) -> list:
     """The layers of a stacked tree (each leaf split along axis 0 by one
     ``torch.unbind``), one dict per layer: what ``lax.scan`` hands its
@@ -179,7 +186,7 @@ def _unembed_matrix(cfg, params):
 def _logits(cfg, params, h_last):
     """Final norm + vocab projection of (B, D) hidden rows -> f32 logits."""
     h_last = rmsnorm(params["final_ln"], h_last)
-    return (h_last @ _unembed_matrix(cfg, params)).float()
+    return pctx.matmul(h_last, _unembed_matrix(cfg, params)).float()
 
 
 def _inputs(cfg, params, batch):
@@ -231,6 +238,7 @@ def _backbone(cfg: ModelConfig, params, x):
     (hidden, aux_loss)."""
     fam = cfg.family
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x = pctx.shard_hidden(x)
     if fam in ("dense", "vlm"):
         blk = _maybe_remat(_dense_block(cfg), cfg)
         for lp in _layers(params):
@@ -292,10 +300,10 @@ def _decode_stack(cfg, params, x, memory):
 
 def _chunk_nll(h, labels, w):
     """(summed token NLL, token count) of one chunk, in f32."""
-    logits = (h @ w).float()
+    logits = pctx.shard_logits(pctx.matmul(h, w).float())
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1,
-                        torch.clamp(labels, min=0)[..., None].long())[..., 0]
+    gold = pctx.gather_vocab(
+        logits, torch.clamp(labels, min=0)[..., None].long())[..., 0]
     mask = (labels >= 0).float()
     return ((logz - gold) * mask).sum(), mask.sum()
 
@@ -461,11 +469,11 @@ def decode_fn(cfg: ModelConfig):
                 # cross-attention reads the precomputed memory KV directly
                 b = h.shape[0]
                 xq = dense(lp["cross_attn"]["wq"], rmsnorm(lp["ln_x"], h))
-                a2 = decode_attention(xq.reshape(b, cfg.n_heads, hd),
+                a2 = decode_attention(pctx.reshape(xq, (b, cfg.n_heads, hd)),
                                       cache["ck"][i], cache["cv"][i],
                                       cache["enc_len"])
                 h = h + dense(lp["cross_attn"]["wo"],
-                              a2.reshape(b, 1, cfg.n_heads * hd))
+                              pctx.reshape(a2, (b, 1, cfg.n_heads * hd)))
                 h = h + mlp_apply(lp["mlp"], rmsnorm(lp["ln2"], h))
         cache = dict(cache, len=length + 1)
         return _logits(cfg, params, h[:, 0]), cache
@@ -511,11 +519,13 @@ def prefill_fn(cfg: ModelConfig):
         else:
             h = _inputs(cfg, params, batch)
         b, s = h.shape[0], h.shape[1]
-        cache = init_cache(cfg, b, max_len, h.device, h.dtype)
+        cache = pctx.place_cache(init_cache(cfg, b, max_len, h.device,
+                                            h.dtype), b)
         if fam in ("dense", "vlm", "moe"):
             for lp, i in _attention_layers(cfg, params):
                 h, k, v = attn_block(lp["attn"], lp["ln1"], h)
-                cache["k"][i, :, :s], cache["v"][i, :, :s] = k, v
+                pctx.write_prefix(cache["k"][i], k)
+                pctx.write_prefix(cache["v"][i], v)
                 h = _ffn(cfg, lp, h)
         elif fam == "hybrid":
             shared = params["shared_attn"]
@@ -526,7 +536,8 @@ def prefill_fn(cfg: ModelConfig):
                     h = h + y
                     cache["ssm"][g, j], cache["conv"][g, j] = st, cst
                 h, k, v = attn_block(shared["attn"], shared["ln1"], h)
-                cache["k"][g, :, :s], cache["v"][g, :, :s] = k, v
+                pctx.write_prefix(cache["k"][g], k)
+                pctx.write_prefix(cache["v"][g], v)
                 h = _ffn(cfg, shared, h)
         elif fam == "ssm":
             for i, lp in enumerate(_layers(params)):
@@ -542,12 +553,14 @@ def prefill_fn(cfg: ModelConfig):
             sm = memory.shape[1]
             for i, lp in enumerate(_layers(params)):
                 h, k, v = attn_block(lp["self_attn"], lp["ln1"], h)
-                cache["k"][i, :, :s], cache["v"][i, :, :s] = k, v
+                pctx.write_prefix(cache["k"][i], k)
+                pctx.write_prefix(cache["v"][i], v)
                 a, (ck, cv) = attention_apply(
                     lp["cross_attn"], rmsnorm(lp["ln_x"], h), cfg,
                     memory=memory, kv_out=True)
                 h = h + a
-                cache["ck"][i, :, :sm], cache["cv"][i, :, :sm] = ck, cv
+                pctx.write_prefix(cache["ck"][i], ck)
+                pctx.write_prefix(cache["cv"][i], cv)
                 h = h + mlp_apply(lp["mlp"], rmsnorm(lp["ln2"], h))
             cache["enc_len"].fill_(sm)
         cache["len"].fill_(s)

@@ -21,6 +21,9 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..parallel import ctx as pctx
+from ..parallel import op_cost
+
 # ---------------------------------------------------------------------------
 # mLSTM
 # ---------------------------------------------------------------------------
@@ -75,9 +78,10 @@ def mlstm_apply(p, x, n_heads: int, state=None, chunk: int = 0):
     xi, z = torch.split(up, d_inner, dim=-1)
     hd = d_inner // n_heads
 
-    q = (xi @ p["wq"]).reshape(b, s, n_heads, hd).float()
-    k = (xi @ p["wk"]).reshape(b, s, n_heads, hd).float() / math.sqrt(hd)
-    v = (xi @ p["wv"]).reshape(b, s, n_heads, hd).float()
+    q = pctx.reshape(xi @ p["wq"], (b, s, n_heads, hd)).float()
+    k = pctx.reshape(xi @ p["wk"], (b, s, n_heads, hd)).float() \
+        / math.sqrt(hd)
+    v = pctx.reshape(xi @ p["wv"], (b, s, n_heads, hd)).float()
     ig = (xi @ p["wi"]).float()                          # (B,S,H) log-space
     fg = F.logsigmoid((xi @ p["wf"]).float())
 
@@ -90,19 +94,27 @@ def mlstm_apply(p, x, n_heads: int, state=None, chunk: int = 0):
         C, n, m = state
 
     if chunk and s > 1:
-        h, (C, n, m) = _mlstm_chunked(q, k, v, ig, fg, (C, n, m), chunk)
+        h, (C, n, m) = op_cost.region("mlstm_scan", _mlstm_chunked, q, k, v,
+                                      ig, fg, (C, n, m), chunk)
     else:
-        hs = []
-        for t in range(s):
-            (C, n, m), h_t = _mlstm_step(C, n, m, q[:, t], k[:, t], v[:, t],
-                                         ig[:, t], fg[:, t])
-            hs.append(h_t)
-        h = torch.stack(hs, dim=1)
-    h = h.reshape(b, s, d_inner)
+        h, (C, n, m) = op_cost.region("mlstm_scan", _mlstm_loop, q, k, v,
+                                      ig, fg, (C, n, m))
+    h = pctx.reshape(h, (b, s, d_inner))
     h = h.to(x.dtype) * torch.sigmoid(xi @ p["wo_gate"])
     h = h + p["skip_scale"] * xi
     out = (h * F.silu(z)) @ p["down"]
     return out, (C, n, m)
+
+
+def _mlstm_loop(q, k, v, ig, fg, state):
+    """The stabilized per-token recurrence over S steps."""
+    C, n, m = state
+    hs = []
+    for t in range(q.shape[1]):
+        (C, n, m), h_t = _mlstm_step(C, n, m, q[:, t], k[:, t], v[:, t],
+                                     ig[:, t], fg[:, t])
+        hs.append(h_t)
+    return torch.stack(hs, dim=1), (C, n, m)
 
 
 def _mlstm_chunked(q, k, v, ig, fg, state, chunk: int):

@@ -1,0 +1,389 @@
+"""Ambient parallelism context for activation sharding, the twin of
+``repro.parallel.ctx``.
+
+Model code is mesh-agnostic; the launcher calls ``configure(mesh)`` before
+it runs a step on DTensors, and the layer code calls the ``shard_*``
+helpers, which redistribute a DTensor activation to the placements the
+rule names when a context is active.  Otherwise — no context, or a plain
+tensor (every single-card path) — they return ``x`` unchanged after one
+check, so the host-bound decode step pays next to nothing.
+
+Eager DTensor has no counterpart of GSPMD's propagation through in-place
+writes, of its vocab-parallel gather and lookup, of its resharding around
+a reshape, or of its partitioning of products (it reshards activations
+where GSPMD gathers an FSDP weight, and some versions refuse to flatten
+two sharded dims), so more helpers keep the model on the placements the
+rules name: ``place_cache``, ``write_rows``, ``write_prefix``,
+``gather_vocab``, ``embedding``, ``reshape``, ``einsum``, ``matmul`` and
+``per_shard``, which runs attention, independent over batch and heads,
+on each rank's shards.  With the context off each is the plain op.
+
+Rules:
+  * batch dims shard over DP axes only when divisible (decode with
+    global_batch < |dp| must stay unsharded — the KV cache is
+    sequence-sharded instead),
+  * head/width dims shard over 'model' (uneven shards allowed, e.g. 15
+    heads on a 16-way axis, where GSPMD pads),
+  * expert dim shards over 'model' (expert parallelism).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .sharding import cache_specs, map_with_path, to_placements
+
+_STATE = {"on": False, "mesh": None, "dp": ("data",), "tp": "model",
+          "dp_size": 1}
+
+
+def configure(mesh) -> None:
+    """Turn the context on over a ``DeviceMesh``."""
+    names = tuple(mesh.mesh_dim_names)
+    size = dict(zip(names, mesh.mesh.shape))
+    dp = tuple(a for a in names if a in ("pod", "data"))
+    _STATE.update(on=True, mesh=mesh, dp=dp,
+                  tp="model" if "model" in names else None,
+                  dp_size=math.prod(int(size[a]) for a in dp) if dp else 1)
+
+
+def disable() -> None:
+    _STATE.update(on=False, mesh=None)
+
+
+def active() -> bool:
+    return _STATE["on"]
+
+
+def _wsc(x, spec):
+    """``x`` redistributed to ``spec``'s placements on the context's mesh;
+    a plain tensor (a constant the model made) counts as replicated."""
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = _STATE["mesh"]
+    if not isinstance(x, DTensor):
+        x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    placements = to_placements(spec, mesh)
+    if tuple(x.placements) == placements:
+        return x
+    return x.redistribute(mesh, placements)
+
+
+def _dp_for(dim: int):
+    dp = _STATE["dp"]
+    if not dp:
+        return None
+    return dp if dim % max(_STATE["dp_size"], 1) == 0 else None
+
+
+def shard_batch_seq(x):
+    """(B, S, ...) activations: batch over DP."""
+    if not _STATE["on"] or x.ndim < 2:
+        return x
+    spec = (_dp_for(x.shape[0]),) + (None,) * (x.ndim - 1)
+    return _wsc(x, spec)
+
+
+def shard_hidden(x):
+    """(B, S, D): batch over DP, D replicated (Megatron activations)."""
+    return shard_batch_seq(x)
+
+
+def shard_heads(x):
+    """(B, S, H, hd): batch over DP, heads over TP (uneven if needed)."""
+    if not _STATE["on"] or x.ndim != 4:
+        return x
+    return _wsc(x, (_dp_for(x.shape[0]), None, _STATE["tp"], None))
+
+
+def shard_ffn(x):
+    """(B, S, F): FFN width over TP."""
+    if not _STATE["on"] or x.ndim != 3:
+        return x
+    return _wsc(x, (_dp_for(x.shape[0]), None, _STATE["tp"]))
+
+
+def shard_experts(x):
+    """(E, ...): expert dim over TP ('model') — expert parallelism."""
+    if not _STATE["on"]:
+        return x
+    return _wsc(x, (_STATE["tp"],) + (None,) * (x.ndim - 1))
+
+
+def shard_bh(x):
+    """(B, H, ...): batch over DP, heads over TP (scan carries, SSM state)."""
+    if not _STATE["on"] or x.ndim < 2:
+        return x
+    return _wsc(x, (_dp_for(x.shape[0]), _STATE["tp"])
+                + (None,) * (x.ndim - 2))
+
+
+def shard_logits(x):
+    """(..., V): vocab over TP."""
+    if not _STATE["on"]:
+        return x
+    spec = (_dp_for(x.shape[0]),) + (None,) * (x.ndim - 2) + (_STATE["tp"],)
+    return _wsc(x, spec)
+
+
+# ---------------------------------------------------------------------------
+# GSPMD's partitioning where eager DTensor has none (see the module doc)
+# ---------------------------------------------------------------------------
+
+def _reshape(x, shape):
+    """``x.reshape(shape)`` on a DTensor, gathering first where DTensor
+    refuses (see ``reshape``)."""
+    try:
+        return x.reshape(shape)
+    except RuntimeError:
+        from torch.distributed.tensor import Replicate
+    keep = 0                      # leading dims the reshape leaves alone
+    while keep < min(x.ndim, len(shape)) and x.shape[keep] == shape[keep]:
+        keep += 1
+    pl = [Replicate() if p.is_shard() and p.dim % x.ndim >= keep else p
+          for p in x.placements]
+    return x.redistribute(x.device_mesh, pl).reshape(shape)
+
+
+class _Reshape(torch.autograd.Function):
+    """``_reshape`` both ways: the gradient's reshape back may meet the
+    same refusal."""
+
+    @staticmethod
+    def forward(ctx, x, shape):
+        ctx.in_shape = tuple(x.shape)
+        return _reshape(x, shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reshape(g, ctx.in_shape), None
+
+
+def reshape(x, shape):
+    """``x.reshape(shape)``.  DTensor refuses to split or merge a sharded
+    dim where the shard edges fall inside an output element (15 heads of
+    a width split 16 ways), and some versions refuse any split of a
+    sharded dim; GSPMD reshards there, and so does this: the mesh dims
+    that shard a dim the reshape changes are gathered first, in the
+    forward and in the backward."""
+    if not (_STATE["on"] and _is_dtensor(x)):
+        return x.reshape(shape)
+    return _Reshape.apply(x, tuple(shape))
+
+
+def einsum(eq: str, *ops):
+    """``torch.einsum(eq, *ops)``.  On DTensors each rank contracts its own
+    shards, with GSPMD's rule for the placements: on each mesh dim the
+    first operand sharded there keeps its letter — an activation keeps
+    its batch shard — and another operand sharded there on another letter
+    is gathered first (a weight's FSDP shard), a partial sum meeting a
+    shard is summed first; an operand replicated there is cut to the
+    rank's slice of the letter, without communication.  The output keeps
+    a sharded letter it has, and is a partial sum over a contracted one
+    (or where one operand is a partial sum).  Some DTensor versions refuse
+    these einsums' flattening of a sharded dim, and DTensor's own choice
+    reshards activations where GSPMD gathers weights."""
+    if not (_STATE["on"] and any(_is_dtensor(o) for o in ops)):
+        return torch.einsum(eq, *ops)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    ins, out = eq.replace(" ", "").split("->")
+    ins = ins.split(",")
+    mesh = next(o.device_mesh for o in ops if isinstance(o, DTensor))
+    ops = [o if isinstance(o, DTensor) else DTensor.from_local(
+        o, mesh, [Replicate()] * mesh.ndim, run_check=False) for o in ops]
+    target = [list(o.placements) for o in ops]
+    out_pl = []
+    for m in range(mesh.ndim):
+        owner = next(((i, ins[i][o.placements[m].dim % o.ndim])
+                      for i, o in enumerate(ops)
+                      if o.placements[m].is_shard()), None)
+        partial = [i for i, o in enumerate(ops)
+                   if o.placements[m].is_partial()]
+        if owner is None and len(partial) <= 1:
+            out_pl.append(Partial() if partial else Replicate())
+            continue
+        letter = owner[1] if owner else None
+        for i, sub in enumerate(ins):
+            target[i][m] = Shard(sub.index(letter)) if letter in sub \
+                else Replicate()
+        out_pl.append(Replicate() if letter is None else
+                      Shard(out.index(letter)) if letter in out
+                      else Partial())
+    sizes = {}
+    for sub, o in zip(ins, ops):
+        sizes.update(zip(sub, o.shape))
+    shape = tuple(sizes[c] for c in out)
+    stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+    local = torch.einsum(eq, *(o.redistribute(mesh, t).to_local()
+                               for o, t in zip(ops, target)))
+    return DTensor.from_local(local, mesh, out_pl, run_check=False,
+                              shape=shape, stride=stride)
+
+
+def matmul(x, w):
+    """``x @ w`` for activations x (..., d) and a weight w (d, f); on
+    DTensors through ``einsum``'s rule (the weight's FSDP shard gathered,
+    the activations' batch shard kept)."""
+    if not (_STATE["on"] and (_is_dtensor(x) or _is_dtensor(w))):
+        return x @ w
+    lead = "abcdefghijklmnopqrstuvw"[:x.ndim - 1]
+    return einsum(f"{lead}y,yz->{lead}z", x, w)
+
+
+def embedding(table, ids):
+    """``table[ids]``.  On a DTensor table sharded over the vocabulary it
+    is the vocab-parallel lookup (as ``gather_vocab``): each rank looks up
+    the ids in its slice of the vocabulary, zeroes the others, and the
+    partial sums are summed at once into rows placed as
+    ``shard_batch_seq`` places them."""
+    if not (_STATE["on"] and _is_dtensor(table)):
+        return table[ids]
+    import torch.nn.functional as F
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    mesh, pl = table.device_mesh, tuple(table.placements)
+    vocab = [m for m, p in enumerate(pl) if p.is_shard(0)]
+    if not isinstance(ids, DTensor):
+        ids = DTensor.from_local(ids, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False)
+    # whole rows (an FSDP-sharded width is gathered), ids whole over the
+    # vocabulary's mesh dims
+    table = table.redistribute(mesh, [p if m in vocab else Replicate()
+                                      for m, p in enumerate(pl)])
+    ids = ids.redistribute(mesh, [Replicate() if m in vocab else p
+                                  for m, p in enumerate(ids.placements)])
+    lo = _rank_offset(table.shape[0], mesh, vocab)
+    local, li = table.to_local(), ids.to_local()
+    rel = li - lo
+    inside = (rel >= 0) & (rel < local.shape[0])
+    rows = F.embedding(rel.clamp(0, max(local.shape[0] - 1, 0)), local)
+    rows = torch.where(inside[..., None], rows,
+                       torch.zeros((), dtype=rows.dtype, device=rows.device))
+    out_pl = [Partial() if m in vocab else p
+              for m, p in enumerate(ids.placements)]
+    shape = tuple(ids.shape) + (table.shape[1],)
+    stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+    return shard_batch_seq(DTensor.from_local(rows, mesh, out_pl,
+                                              run_check=False, shape=shape,
+                                              stride=stride))
+
+
+def per_shard(fn, q, k, v, **kwargs):
+    """``fn(q, k, v, **kwargs)`` for an attention ``fn`` over (B, S, H, hd)
+    operands.  On DTensors placed alike and sharded only over batch and
+    heads, each rank runs ``fn`` on its own shards and the output keeps
+    their placements: no collective, as GSPMD partitions attention."""
+    if not (_STATE["on"] and _is_dtensor(q)):
+        return fn(q, k, v, **kwargs)
+    from torch.distributed.tensor import DTensor
+    pl = tuple(q.placements)
+    local = all(p.is_replicate() or p.is_shard() and p.dim % 4 in (0, 2)
+                for p in pl)
+    if not (local and tuple(k.placements) == pl == tuple(v.placements)):
+        return fn(q, k, v, **kwargs)
+    _STATE["on"] = False            # the shards are plain tensors
+    try:
+        out = fn(q.to_local(), k.to_local(), v.to_local(), **kwargs)
+    finally:
+        _STATE["on"] = True
+    shape = (q.shape[0], q.shape[1], q.shape[2], v.shape[3])
+    stride = (shape[1] * shape[2] * shape[3], shape[2] * shape[3],
+              shape[3], 1)
+    return DTensor.from_local(out, q.device_mesh, pl, run_check=False,
+                              shape=shape, stride=stride)
+
+
+def _rank_offset(extent: int, mesh, mesh_dims) -> int:
+    """This rank's first index of a dim of ``extent`` sharded over
+    ``mesh_dims`` (major first), each split as ``torch.chunk`` splits
+    it."""
+    coords, lo = mesh.get_coordinate(), 0
+    for m in mesh_dims:
+        step = -(-extent // int(mesh.mesh.shape[m]))
+        start = min(coords[m] * step, extent)
+        lo, extent = lo + start, min(step, extent - start)
+    return lo
+
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def place_cache(cache: dict, global_batch: int) -> dict:
+    """A fresh cache placed by ``cache_specs`` (what GSPMD gives a
+    prefill's cache); off the context, the cache as it is."""
+    if not _STATE["on"]:
+        return cache
+    from torch.distributed.tensor import distribute_tensor
+    mesh = _STATE["mesh"]
+    specs = cache_specs(cache, mesh, global_batch)
+
+    def place(path, t):
+        spec = specs
+        for k in path:
+            spec = spec[k]
+        return distribute_tensor(t, mesh, to_placements(spec, mesh))
+    return map_with_path(place, cache)
+
+
+def write_rows(cache, rows, pos, value) -> None:
+    """``cache[rows, pos] = value``: row ``rows[i]`` of a (B, S, ...) cache
+    takes ``value[i]`` at position ``pos[i]`` (``rows`` is ``arange(B)``).
+    On DTensors it is JAX's one-hot blend, elementwise, so it keeps the
+    cache's sharding of B and S."""
+    if not (_STATE["on"] and _is_dtensor(cache)):
+        cache[rows, pos] = value
+        return
+    s = torch.arange(cache.shape[1], device=pos.device)
+    hit = (s[None, :] == pos[:, None]).reshape(
+        pos.shape + (cache.shape[1],) + (1,) * (cache.ndim - 2))
+    cache.copy_(torch.where(hit, value[:, None], cache))
+
+
+def write_prefix(dst, src, dim: int = 1) -> None:
+    """``dst[:, :n] = src`` along ``dim`` (n = src's extent there) into a
+    fresh, zero ``dst``.  On DTensors ``src`` is zero-padded to ``dst``'s
+    extent and copied whole, so a sharded ``dim`` needs no slice of it."""
+    if not (_STATE["on"] and _is_dtensor(dst)):
+        dst[(slice(None),) * dim + (slice(0, src.shape[dim]),)] = src
+        return
+    pad = list(src.shape)
+    pad[dim] = dst.shape[dim] - src.shape[dim]
+    zeros = torch.zeros(pad, dtype=src.dtype, device=src.device)
+    dst.copy_(torch.cat([src, zeros], dim=dim))
+
+
+def gather_vocab(logits, idx):
+    """``torch.gather(logits, -1, idx)``.  On a DTensor sharded over the
+    vocabulary it is the vocab-parallel gather: each rank gathers from its
+    own slice of the vocabulary, zeroes the indices outside it, and the
+    result is a partial sum over the vocabulary's mesh dims (one small
+    all-reduce where it is read)."""
+    if not (_STATE["on"] and _is_dtensor(logits)):
+        return torch.gather(logits, -1, idx)
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    mesh, pl = logits.device_mesh, tuple(logits.placements)
+    vdim = logits.ndim - 1
+    vocab_dims = [m for m, p in enumerate(pl) if p.is_shard(vdim)]
+    if not vocab_dims:
+        return torch.gather(logits, -1, idx)
+    idx_pl = tuple(Replicate() if m in vocab_dims else p
+                   for m, p in enumerate(pl))
+    if not isinstance(idx, DTensor):
+        idx = DTensor.from_local(idx, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False)
+    idx = idx.redistribute(mesh, idx_pl)
+    lo = _rank_offset(logits.shape[vdim], mesh, vocab_dims)
+    local, li = logits.to_local(), idx.to_local()
+    n = local.shape[-1]
+    rel = li - lo
+    inside = (rel >= 0) & (rel < n)
+    got = torch.gather(local, -1, rel.clamp(0, max(n - 1, 0)))
+    got = torch.where(inside, got, torch.zeros((), dtype=got.dtype,
+                                               device=got.device))
+    out_pl = [Partial() if m in vocab_dims else p for m, p in enumerate(pl)]
+    return DTensor.from_local(got, mesh, out_pl, run_check=False,
+                              shape=idx.shape, stride=idx.stride())
+

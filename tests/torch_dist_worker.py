@@ -1,0 +1,100 @@
+"""One rank of ``tests/test_torch_parallel.py``'s ``gloo`` world: the
+port's int8 compressed all-reduce and GPipe pipeline over a 4-rank group,
+and a checkpoint saved under a (4, 2) mesh and restored under a (2, 2)
+one.  ``torch.multiprocessing.spawn`` runs ``run`` once per rank; rank 0
+writes what the test compares to ``out_dir``."""
+
+import os
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+COMP_SHAPE = (64, 32)
+S, M, MB, D = 4, 6, 2, 16
+
+
+def replicated_grads():
+    rng = np.random.default_rng(0)
+    return {"w": rng.normal(size=COMP_SHAPE).astype(np.float32),
+            "b": rng.normal(size=(7,)).astype(np.float32)}
+
+
+def rank_grads(rank: int):
+    rng = np.random.default_rng(100 + rank)
+    return {"w": rng.normal(size=COMP_SHAPE).astype(np.float32) * (1 + rank)}
+
+
+def pipeline_inputs():
+    rng = np.random.default_rng(0)
+    ws = (rng.normal(size=(S, D, D)) / np.sqrt(D)).astype(np.float32)
+    xs = rng.normal(size=(M, MB, D)).astype(np.float32)
+    return ws, xs
+
+
+def elastic_leaves():
+    return {"w": np.arange(64, dtype=np.float32).reshape(8, 8),
+            "e": (np.arange(8 * 6, dtype=np.float32).reshape(8, 6) / 7)}
+
+
+def _tensors(tree):
+    return {k: torch.from_numpy(v.copy()) for k, v in tree.items()}
+
+
+def run(rank: int, world: int, store_dir: str, out_dir: str) -> None:
+    from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+    from torch.distributed.tensor import Shard, distribute_tensor
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.parallel.compression import compressed_psum_grads
+    from repro_torch.parallel.pipeline import pipeline_apply
+
+    store = dist.FileStore(os.path.join(store_dir, "store"), world)
+    dist.init_process_group("gloo", store=store, rank=rank, world_size=world)
+    try:
+        sub = dist.new_group(list(range(4)))
+        out = {}
+        if rank < 4:
+            g = _tensors(replicated_grads())
+            r = {k: torch.zeros_like(v) for k, v in g.items()}
+            mean, res = compressed_psum_grads(g, r, sub)
+            out.update({f"rep_mean_{k}": v.numpy() for k, v in mean.items()})
+            out.update({f"rep_res_{k}": v.numpy() for k, v in res.items()})
+            g = _tensors(rank_grads(rank))
+            mean, _ = compressed_psum_grads(
+                g, {k: torch.zeros_like(v) for k, v in g.items()}, sub)
+            out["diff_mean_w"] = mean["w"].numpy()
+
+            ws, xs = pipeline_inputs()
+            got = pipeline_apply(lambda w, x: torch.tanh(x @ w),
+                                 torch.from_numpy(ws), torch.from_numpy(xs),
+                                 sub)
+            out["pipeline"] = got.numpy()
+
+        # elastic: saved under (4, 2), restored under (2, 2) on ranks 0-3
+        mesh = init_device_mesh("cpu", (4, 2),
+                                mesh_dim_names=("data", "model"))
+        pl = (Shard(0), Shard(1))
+        tree = {k: distribute_tensor(v, mesh, pl, src_data_rank=None)
+                for k, v in _tensors(elastic_leaves()).items()}
+        tree["e"] = tree["e"].to(torch.bfloat16)
+        cm = CheckpointManager(os.path.join(out_dir, "ckpt"))
+        cm.save(1, tree)
+        dist.barrier()
+        small = DeviceMesh("cpu", torch.arange(4).reshape(2, 2),
+                           mesh_dim_names=("data", "model"))
+        if rank < 4:
+            like = {"w": torch.zeros(8, 8),
+                    "e": torch.zeros(8, 6, dtype=torch.bfloat16)}
+            got, manifest = cm.restore(
+                like, shardings={k: (small, pl) for k in like})
+            out["manifest_step"] = np.array(manifest["step"])
+            for k, v in got.items():
+                local = v.to_local()
+                out[f"local_{k}"] = (local.float().numpy() if k == "w" else
+                                     local.view(torch.int16).numpy())
+                out[f"placements_{k}"] = np.array(
+                    [str(p) for p in v.placements])
+            np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
