@@ -169,12 +169,24 @@ Phases (any failure exits non-zero and prints no result line):
      ``rmsnorm`` a decode step, 129 ``rmsnorm`` and 65 ``rmsnorm_bwd`` a
      training step);
    * (c) ``python -m repro_torch.launch.dryrun`` for smollm-360m
-     decode_32k and llama3-8b train_4k on the fake 16 x 16 mesh, as
-     concurrent subprocesses on the host: each exits 0 with an ``ok`` row
-     and prints its roofline.
+     decode_32k, llama3-8b train_4k, and xlstm-125m train_4k and
+     prefill_32k (traced with their scans cut to 2 and 3 trips), and
+     ``python -m repro_torch.launch.perf --cell xlstm`` (one process a
+     variant), on the fake 16 x 16 mesh, as concurrent subprocesses on the
+     host: each exits 0 with an ``ok`` row; each row's terms and wall are
+     printed, and the ladder's order by bytes.
+11. The port's examples on the card, each a subprocess that zeroes the
+   launch counters before its run and prints them after:
+   ``python -m repro_torch.examples.serve_smse`` (80 requests, 2 planes,
+   the one-at-a-time path: ``decode_attention`` and ``rmsnorm`` launched,
+   no ``pmf_conv`` under its queue-length autoscaler), all 80 submitted
+   requests accounted for, each completed or dropped; ``train_100m
+   --full-width --steps 20`` (12 layers of smollm-360m, 8 x 512
+   tokens): every logged loss finite, the last below the first, 25
+   ``rmsnorm`` and 25 ``rmsnorm_bwd`` launches a step.
 9. Print tokens/s, decode-step walls, per-kernel launches and times, the
    kernel JSON line (with each kernel's back-to-back wall a call,
-   ``wall_ms``; launches summed over phases 3-8 and 10), and last the
+   ``wall_ms``; launches summed over phases 3-8, 10 and 11), and last the
    device JSON line.
 """
 
@@ -186,6 +198,7 @@ import itertools
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2126,7 +2139,10 @@ def train_phase(smi: str) -> dict:
 PARALLEL_STORE = ROOT / "build" / "phase10_store"
 DRYRUN_OUT = ROOT / "build" / "dryrun_phase10"
 #: the dry-run cells the card's host traces on the fake 256-rank mesh
-DRYRUN_CELLS = (("smollm-360m", "decode_32k"), ("llama3-8b", "train_4k"))
+DRYRUN_CELLS = (("smollm-360m", "decode_32k"), ("llama3-8b", "train_4k"),
+                ("xlstm-125m", "train_4k"), ("xlstm-125m", "prefill_32k"))
+#: the hillclimb cell ``launch.perf`` traces there, one process a variant
+PERF_CELL = "xlstm"
 #: PERF.md's hand counts (PR 17): the weight bytes a B=1 smollm-360m
 #: decode step reads, and the bf16 products of a training step
 HAND_DECODE_BYTES, HAND_TRAIN_FLOPS = 0.724e9, 27e12
@@ -2275,38 +2291,51 @@ def counted_bounds(cfg) -> dict:
     return {"decode": decode, "train": train}
 
 
-def dryrun_cells() -> list[dict]:
+def dryrun_cells() -> tuple[list[dict], list[dict]]:
     """``python -m repro_torch.launch.dryrun`` on the fake 16 x 16 mesh for
-    each of ``DRYRUN_CELLS``, as concurrent subprocesses on the host (no
-    card): each exits 0, prints its roofline and writes an ``ok`` row."""
+    each of ``DRYRUN_CELLS`` and ``python -m repro_torch.launch.perf
+    --cell PERF_CELL`` for each of its variants, as concurrent
+    subprocesses on the host (no card): each exits 0, and writes ``ok``
+    rows; (dry-run rows, perf rows), each with its wall."""
+    from repro_torch.launch.perf import CELLS
     DRYRUN_OUT.mkdir(parents=True, exist_ok=True)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                CUDA_VISIBLE_DEVICES="")
+    runs = [(f"{arch} {shape}", DRYRUN_OUT / f"{arch}.{shape}.jsonl",
+             ["repro_torch.launch.dryrun", "--arch", arch, "--shape", shape])
+            for arch, shape in DRYRUN_CELLS]
+    runs += [(f"perf {PERF_CELL}:{tag}",
+              DRYRUN_OUT / f"perf.{PERF_CELL}.{tag}.jsonl",
+              ["repro_torch.launch.perf", "--cell", PERF_CELL, "--variant",
+               tag]) for tag, _ in CELLS[PERF_CELL]["variants"]]
     procs = []
-    for arch, shape in DRYRUN_CELLS:
-        out = DRYRUN_OUT / f"{arch}.{shape}.jsonl"
+    for what, out, argv in runs:
         out.unlink(missing_ok=True)
-        procs.append((arch, shape, out, time.perf_counter(), subprocess.Popen(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-             arch, "--shape", shape, "--out", str(out)], cwd=ROOT, env=env,
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        procs.append((what, out, time.perf_counter(), subprocess.Popen(
+            [sys.executable, "-m", *argv, "--out", str(out)], cwd=ROOT,
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)))
     rows = []
-    for arch, shape, out, t0, p in procs:
-        try:
+    try:
+        for what, out, t0, p in procs:
             stdout, stderr = p.communicate(timeout=600)
-        except subprocess.TimeoutExpired:
-            p.kill()
-            p.communicate()
-            raise
-        wall = time.perf_counter() - t0
-        if p.returncode != 0 or "roofline" not in stdout:
-            raise AssertionError(f"the dry-run of {arch} {shape} exited "
-                                 f"{p.returncode}:\n{stderr[-3000:]}")
-        row = json.loads(out.read_text().splitlines()[-1])
-        if row["status"] != "ok" or row["chips"] != 256:
-            raise AssertionError(f"the dry-run of {arch} {shape}: {row}")
-        rows.append(dict(row, wall_s=wall))
-    return rows
+            wall = time.perf_counter() - t0
+            if p.returncode != 0 or not out.exists():
+                raise AssertionError(f"{what} exited {p.returncode}:\n"
+                                     f"{stderr[-3000:]}")
+            row = json.loads(out.read_text().splitlines()[-1])
+            if row["status"] != "ok" or row["chips"] != 256:
+                raise AssertionError(f"{what}: {row}")
+            if what.startswith("perf") and "roofline_fused" not in row:
+                raise AssertionError(f"{what}: no fused-credit roofline")
+            rows.append(dict(row, wall_s=wall))
+    finally:
+        for _, _, _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return ([r for r in rows if "variant" not in r],
+            [r for r in rows if "variant" in r])
 
 
 def parallel_phase(smi: str, measured: dict) -> dict:
@@ -2374,24 +2403,124 @@ def parallel_phase(smi: str, measured: dict) -> dict:
             f"{v['flops'] / 1e9:.4f} GFLOP" for k, v in
             sorted(rl.kernels.items())))
     t0 = time.perf_counter()
-    rows = dryrun_cells()
-    log(f"  (c) python -m repro_torch.launch.dryrun on the fake 16 x 16 "
-        f"mesh (host only, {time.perf_counter() - t0:.1f} s):")
-    for r in rows:
+    rows, perf = dryrun_cells()
+    log(f"  (c) python -m repro_torch.launch.dryrun and launch.perf --cell "
+        f"{PERF_CELL} on the fake 16 x 16 mesh (host only, "
+        f"{len(rows) + len(perf)} concurrent processes, "
+        f"{time.perf_counter() - t0:.1f} s):")
+    for r in rows + perf:
         rl = r["roofline"]
-        log(f"      {r['arch']} {r['shape']}: ok in {r['wall_s']:.1f} s "
-            f"(trace {r['trace_s']} s, units {r['traced_units']}); per rank "
-            f"{rl['flops_per_chip'] / 1e12:.4f} TFLOP, "
+        what = (f"perf {r['cell']}:{r['variant']} ({r['arch']} "
+                f"{r['shape']})" if "variant" in r
+                else f"{r['arch']} {r['shape']}")
+        log(f"      {what}: ok in {r['wall_s']:.1f} s (trace {r['trace_s']} "
+            f"s, units {r['traced_units']}"
+            + (f", scan trips {r['traced_trips']}" if "traced_trips" in r
+               else "")
+            + f"); per rank {rl['flops_per_chip'] / 1e12:.4f} TFLOP, "
             f"{rl['bytes_per_chip'] / 1e9:.3f} GB, collectives "
             f"{rl['collective_bytes_per_chip'] / 1e9:.3f} GB; t_compute "
             f"{1e3 * rl['t_compute_s']:.3f} ms, t_memory "
             f"{1e3 * rl['t_memory_s']:.3f} ms, t_collective "
-            f"{1e3 * rl['t_collective_s']:.3f} ms ({rl['bottleneck']}); "
-            f"memory {r['memory']}")
+            f"{1e3 * rl['t_collective_s']:.3f} ms ({rl['bottleneck']})"
+            + (f", fused t_memory "
+               f"{1e3 * r['roofline_fused']['t_memory_s']:.3f} ms"
+               if "roofline_fused" in r else "")
+            + f"; memory {r['memory']}")
+    ladder = sorted(perf, key=lambda r: -r["roofline"]["bytes_per_chip"])
+    log(f"      perf {PERF_CELL} ladder by bytes a rank, most first: "
+        + " > ".join(r["variant"] for r in ladder))
     log(f"    main-path kernel launches: {counts}")
     log(f"  phase 10 took {time.perf_counter() - t00:.1f} s")
     return {"counts": counts, "bounds": bounds, "dryrun": rows,
-            "compression": comp}
+            "perf": perf, "compression": comp}
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the port's examples on the card
+# ---------------------------------------------------------------------------
+
+EXAMPLE_SERVE_REQUESTS = 80        # serve_smse's default
+EXAMPLE_TRAIN_DIR = ROOT / "build" / "example_train_100m"
+EXAMPLE_TRAIN_STEPS = 20
+EXAMPLE_TRAIN_LAYERS = 12          # train_100m --full-width's depth
+
+
+def run_example(name: str, *argv: str) -> tuple[str, float, dict]:
+    """``python -m repro_torch.examples.<name> *argv`` on the card (its
+    default device): (stdout, wall, the kernel launches it printed)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m",
+                          f"repro_torch.examples.{name}", *argv],
+                         capture_output=True, text=True, env=env, cwd=ROOT,
+                         timeout=600)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"examples.{name} exited {res.returncode}:\n"
+                             f"{res.stderr[-3000:]}")
+    m = re.search(r"^kernel launches\s+(\{.*\})$", res.stdout, re.M)
+    if m is None:
+        raise AssertionError(f"examples.{name} printed no kernel launches:"
+                             f"\n{res.stdout[-2000:]}")
+    return res.stdout, wall, json.loads(m.group(1))
+
+
+def examples_phase(smi: str) -> dict:
+    """Phase 11: ``serve_smse`` (``EXAMPLE_SERVE_REQUESTS``, 2 planes) and
+    ``train_100m --full-width`` for ``EXAMPLE_TRAIN_STEPS`` steps, each a
+    subprocess on the card, each reading its own kernel launches (zeroed
+    just before its run)."""
+    log(f"phase 11: the port's examples on the card ({smi})")
+    out, serve_wall, serve = run_example("serve_smse", "--requests",
+                                         str(EXAMPLE_SERVE_REQUESTS))
+    field = {m.group(1): int(m.group(2)) for m in re.finditer(
+        r"^(submitted|requests|completed|dropped \(pruned\))\s+(\d+)", out,
+        re.M)}
+    n = EXAMPLE_SERVE_REQUESTS
+    if field.get("submitted") != n or field.get("requests") != n \
+            or field["completed"] + field["dropped (pruned)"] != n \
+            or not field["completed"]:
+        raise AssertionError(f"serve_smse submitted {n} requests and "
+                             f"accounted for {field}")
+    for name in ("decode_attention", "rmsnorm"):
+        if serve[name] == 0:
+            raise AssertionError(f"serve_smse never launched {name}")
+    if serve["pmf_conv"] or serve["paged_decode_attention"]:
+        raise AssertionError(f"serve_smse's queue-policy, one-at-a-time "
+                             f"path launched {serve}")
+    log(f"  python -m repro_torch.examples.serve_smse: {n} requests "
+        f"submitted, {field['requests']} accounted for, completed "
+        f"{field['completed']}, dropped {field['dropped (pruned)']}, in "
+        f"{serve_wall:.1f} s (process and planes set-up included); kernel "
+        f"launches {serve}")
+    shutil.rmtree(EXAMPLE_TRAIN_DIR, ignore_errors=True)
+    try:
+        out, wall, train = run_example(
+            "train_100m", "--full-width", "--steps",
+            str(EXAMPLE_TRAIN_STEPS), "--ckpt-dir", str(EXAMPLE_TRAIN_DIR))
+    finally:
+        shutil.rmtree(EXAMPLE_TRAIN_DIR, ignore_errors=True)
+    steps = [(int(a), float(b), float(c)) for a, b, c in re.findall(
+        r"^step\s+(\d+)\s+loss (\S+)\s+lr \S+\s+(\d+) ms$", out, re.M)]
+    losses = [x for _, x, _ in steps]
+    if not (len(losses) >= 2 and all(np.isfinite(losses))
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"train_100m's losses {losses}: not finite "
+                             f"or not falling")
+    want = EXAMPLE_TRAIN_STEPS * (2 * EXAMPLE_TRAIN_LAYERS + 1)
+    if train["rmsnorm"] != want or train["rmsnorm_bwd"] != want:
+        raise AssertionError(f"train_100m launched {train}: not {want} "
+                             f"rmsnorm and rmsnorm_bwd")
+    log(f"  python -m repro_torch.examples.train_100m --full-width "
+        f"--steps {EXAMPLE_TRAIN_STEPS} (12 layers of smollm-360m, 8 x 512 "
+        f"tokens): loss " + ", ".join(f"step {i} {x:.4f}" for i, x, _ in
+                                      steps)
+        + f"; step walls (ms) " + ", ".join(f"{d:.0f}" for _, _, d in steps)
+        + f"; {wall:.1f} s in all; kernel launches {train}")
+    return {"serve": {"wall_s": serve_wall, "counts": serve, **field},
+            "train": {"wall_s": wall, "losses": losses, "counts": train},
+            "counts": {k: serve[k] + train[k] for k in serve}}
 
 
 def decode_step_profile(mc, params, n_steps: int = 10,
@@ -2629,6 +2758,9 @@ def main() -> int:
     smollm = next(r for r in fam["rows"] if r["arch"] == "smollm-360m")
     par = parallel_phase(smi, {"decode": smollm["profile"]["busy_ms"],
                                "train": train["full"]["busy_ms"]})
+    t0 = time.perf_counter()
+    ex = examples_phase(smi)
+    log(f"  phase 11 took {time.perf_counter() - t0:.1f} s")
 
     st = res["stats"]
     log(f"phase 9 ({smi}):")
@@ -2670,7 +2802,7 @@ def main() -> int:
     for r in rows:
         r["launches"] = sum(c[r["name"]] for c in (
             res["counts"], rr["counts"], moe["counts"], cal["counts"],
-            train["full"]["counts"], par["counts"]))
+            train["full"]["counts"], par["counts"], ex["counts"]))
         r.pop("shape")
         r["wall_ms"] = r.pop("wall")["ms"]
     print(json.dumps({"kernels": rows}), flush=True)

@@ -11,6 +11,11 @@ nothing.  Parameters, optimizer state, batch and cache are DTensors of
 ``loss_fn``, its backward and ``opt_update``; the prefill; or one decode
 step — runs eagerly on them with ``parallel.ctx`` on, under
 ``parallel.op_cost``, which counts rank 0's local ops and collectives.
+Every count is extrapolated from one and two units of each layer stack
+(a prefill's from two and three), each run once uncounted first; an
+xLSTM train or prefill step's recurrences (``op_cost.scan``) are
+also cut to 2 and 3 steps, and the count evaluated at the sequence's
+length (``cell_cost``).
 
 Usage:
   python -m repro_torch.launch.dryrun --arch llama3-8b --shape train_4k
@@ -108,10 +113,16 @@ def _local_bytes(*trees) -> int:
     return int(sum(op_cost.tensor_bytes(t) for t in trees))
 
 
-def _traced(step, state) -> tuple[op_cost.OpCost, dict]:
+def _traced(step, state, trips: int | None = None) -> tuple[
+        op_cost.OpCost, dict]:
     """Run ``step(*state)`` once under the op counter and ``MemTracker``:
     (rank 0's cost, its peak live bytes or, where the tracker saw none, an
-    ``error`` entry)."""
+    ``error`` entry).  With its scans cut to ``trips`` steps, the counter
+    alone: a peak is a maximum, not a count, and does not extrapolate."""
+    if trips:
+        with op_cost.OpCounter(trips) as counter:
+            step(*state)
+        return counter.cost, {}
     from torch.distributed._tools.mem_tracker import MemTracker
     leaves = []
     for tree in state:
@@ -175,21 +186,159 @@ def _build(cfg, shape, mesh, pspecs_for, n_params: int):
     return T.decode_fn(cfg), (params, cache, tok), None
 
 
+#: the trip counts an xLSTM step's scans are traced at (``OpCounter``'s
+#: ``trips``)
+SCAN_TRIPS = (2, 3)
+
+
+def scan_trips(cfg) -> tuple[int, int]:
+    """The two trip counts a cell's scans are traced at (``SCAN_TRIPS``).
+
+    Only the xLSTM family (``ssm``) runs its recurrences through
+    ``op_cost.scan``: every other op of its step has the same shape at
+    every trip count, so the step's count is affine in the trip count
+    and is evaluated at the sequence's length.  (It is not affine in the
+    length itself: the eager backward of the 512-position loss chunks
+    sums a zero-padded full-length gradient a chunk, quadratic in S.)
+    Any family with attention runs no such scan, and is refused."""
+    if cfg.family != "ssm":
+        raise ValueError(
+            f"{cfg.name} ({cfg.family}) runs no op_cost.scan: its step is "
+            f"traced at its full length, never extrapolated over a trip "
+            f"count")
+    return SCAN_TRIPS
+
+
+def cell_cost(cfg, shape, mesh, fsdp: bool = True,
+              extrapolate: bool = True) -> dict:
+    """Rank 0's cost of one step of ``cfg`` at ``shape`` on ``mesh``.
+
+    With ``extrapolate`` the step is traced at one unit of each layer
+    stack and at two (the decoder and the encoder apart for enc-dec), and
+    every count is extrapolated to the full depth: each is affine in the
+    number of layers, as ``hlo_cost`` multiplies a scanned layer by its
+    trip count.  A prefill is traced at two and three units instead,
+    since ``place_cache`` lays out a fresh one-unit cache without the
+    copy a longer stack takes; each traced depth runs once uncounted
+    first.  An xLSTM train or prefill step is also traced with its scans
+    cut to two trip counts (``scan_trips``), and the four traces are
+    combined bilinearly in (units, trips).  Without ``extrapolate`` the
+    full step is traced once.  Returns ``cost`` (an ``OpCost``),
+    ``memory`` (the full state's argument bytes and the extrapolated peak,
+    or an ``error`` entry), the optimizer's name, ``traced_units``,
+    ``traced_trips`` (where the scans were cut) and ``trace_s``."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    n_params = count_params(param_shapes(cfg))
+
+    def pspecs_for(p_meta):
+        return param_specs(p_meta, fsdp=fsdp, mesh=mesh)
+    trip_counts = [None]
+    if extrapolate and cfg.family == "ssm" and shape.kind != "decode":
+        k1, k2 = scan_trips(cfg)
+        if shape.seq_len > k2:
+            trip_counts = [k1, k2]
+    first = 2 if shape.kind == "prefill" else 1
+    stacks = _stacks(cfg)
+    if not extrapolate or all(full <= first + 1 for _, full, _ in stacks):
+        points = [((), cfg)]
+    else:
+        base = {}
+        for _, _, fields in stacks:
+            base.update(fields(first))
+        points = [((), cfg.scaled(**base))]
+        for name, _, fields in stacks:
+            points.append(((name,), cfg.scaled(**dict(base, **fields(
+                first + 1)))))
+    grad_mode = torch.enable_grad if shape.kind == "train" else torch.no_grad
+    traced = []
+    out = {}
+    pctx.configure(mesh)
+    try:
+        with implicit_replication():
+            _, state, opt = _build(cfg, shape, mesh, pspecs_for, n_params)
+            out["memory"] = {"argument_bytes": _local_bytes(*state)}
+            out["optimizer"] = opt
+            del state
+            t0 = time.time()
+            # DTensor's first call of an op at a shape may run extra local
+            # ops while it propagates shardings, which the extrapolation's
+            # weights would multiply: each depth's step once, uncounted,
+            # first
+            for _, pcfg in points:
+                step, state, _ = _build(pcfg, shape, mesh, pspecs_for,
+                                        n_params)
+                with grad_mode(), op_cost.OpCounter(trip_counts[0]):
+                    step(*state)
+                del step, state
+            for k in trip_counts:
+                for _, pcfg in points:
+                    step, state, _ = _build(pcfg, shape, mesh, pspecs_for,
+                                            n_params)
+                    with grad_mode():
+                        traced.append(_traced(step, state, k))
+                    del step, state
+            out["trace_s"] = round(time.time() - t0, 1)
+    finally:
+        pctx.disable()
+
+    # extrapolate over depth at each trip count: base + (units - first) x
+    # (one more unit of that stack) ...
+    units = {name: full for name, full, _ in stacks}
+    at_trips = []
+    for i in range(len(trip_counts)):
+        (base_cost, base_mem), rest = traced[i * len(points)], \
+            traced[i * len(points) + 1:(i + 1) * len(points)]
+        terms, peak = [(1.0, base_cost)], base_mem.get("peak_bytes")
+        for ((name,), _), (cost, mem) in zip(points[1:], rest):
+            w = float(units[name] - first)
+            terms += [(w, cost), (-w, base_cost)]
+            if peak is not None and "peak_bytes" in mem:
+                peak += w * (mem["peak_bytes"] - base_mem["peak_bytes"])
+        at_trips.append((terms, peak, base_mem))
+    mem = out["memory"]
+    if len(trip_counts) == 1:
+        terms, peak, base_mem = at_trips[0]
+        out["cost"] = op_cost.affine(terms)
+        if peak is None:
+            mem["error"] = base_mem["error"]
+        elif peak < mem["argument_bytes"]:
+            # the state alone is live at the start: a lower peak means
+            # the tracker missed allocations at some depth
+            mem["error"] = (f"MemTracker's peaks at the traced depths "
+                            f"{[m.get('peak_bytes') for _, m in traced]} do "
+                            f"not extrapolate to a peak above the arguments")
+        else:
+            mem["peak_bytes"] = int(peak)
+    else:
+        # ... then over the trip count: D(k1) + (S - k1) / (k2 - k1) x
+        # (D(k2) - D(k1)) at the sequence's length S, the difference
+        # first (every count is an integer, so each step is exact)
+        k1, k2 = trip_counts
+        w = float(shape.seq_len - k1) / (k2 - k1)
+        d1, d2 = (op_cost.affine(t) for t, _, _ in at_trips)
+        out["cost"] = op_cost.affine(
+            [(1.0, d1), (w, op_cost.affine([(1.0, d2), (-1.0, d1)]))])
+        mem["error"] = (f"not traced: the scans were cut to {k1} and {k2} "
+                        f"trips, and a peak does not extrapolate over them")
+        out["traced_trips"] = trip_counts
+    out["traced_units"] = [units] if len(points) == 1 else [
+        {n: first + 1 if n in which else first for n in units}
+        for which, _ in points]
+    return out
+
+
 def lower_cell(arch_name: str, shape_name: str, multi_pod: bool,
                fsdp: bool | None = None, verbose: bool = True,
                overrides: dict | None = None,
                fused_credit: bool = False) -> dict:
-    """Trace one cell for rank 0.
+    """Trace one cell for rank 0 (``cell_cost``, extrapolated to the full
+    depth and, for an xLSTM train or prefill step, to its scans' full
+    trip count).
 
-    The step is traced at one unit of each layer stack and at two (the
-    decoder and the encoder apart for enc-dec), and every count is
-    extrapolated to the full depth: each is affine in the number of
-    layers, as ``hlo_cost`` multiplies a scanned layer by its trip count.
-    The argument bytes are the full-depth state's.  ``overrides`` are
+    The argument bytes are the full state's.  ``overrides`` are
     ModelConfig fields for perf variants; ``fused_credit=True`` also
     records the roofline with the fused regions (flash attention, SSD and
     mLSTM scans) costed at their boundary bytes (``op_cost.region``)."""
-    from torch.distributed.tensor.experimental import implicit_replication
     cfg = get_arch(arch_name)
     if overrides:
         cfg = cfg.scaled(**overrides)
@@ -204,10 +353,6 @@ def lower_cell(arch_name: str, shape_name: str, multi_pod: bool,
     chips = mesh.size()
     n_params = count_params(param_shapes(cfg))
     n_active = active_params(cfg, n_params)
-
-    def pspecs_for(p_meta):
-        return param_specs(p_meta, fsdp=True if fsdp is None else fsdp,
-                           mesh=mesh)
     b, s = shape.global_batch, shape.seq_len
     model_flops = {"train": 6.0 * n_active * (b * s),
                    "prefill": 2.0 * n_active * (b * s),
@@ -216,61 +361,15 @@ def lower_cell(arch_name: str, shape_name: str, multi_pod: bool,
               "chips": chips, "n_params": n_params,
               "n_active_params": n_active, "kind": shape.kind,
               "status": "running"}
-
-    stacks = _stacks(cfg)
-    if all(full <= 2 for _, full, _ in stacks):
-        points = [((), cfg)]
-    else:
-        base = {}
-        for _, _, fields in stacks:
-            base.update(fields(1))
-        points = [((), cfg.scaled(**base))]
-        for name, _, fields in stacks:
-            points.append(((name,), cfg.scaled(**dict(base, **fields(2)))))
-    grad_mode = torch.enable_grad if shape.kind == "train" else torch.no_grad
-    traced = []
-    pctx.configure(mesh)
-    try:
-        with implicit_replication():
-            _, state, opt = _build(cfg, shape, mesh, pspecs_for, n_params)
-            result["memory"] = {"argument_bytes": _local_bytes(*state)}
-            if opt:
-                result["optimizer"] = opt
-            del state
-            t0 = time.time()
-            for _, pcfg in points:
-                step, state, _ = _build(pcfg, shape, mesh, pspecs_for,
-                                        n_params)
-                with grad_mode():
-                    traced.append(_traced(step, state))
-                del step, state
-            result["trace_s"] = round(time.time() - t0, 1)
-    finally:
-        pctx.disable()
-
-    # extrapolate: base + (units - 1) x (one more unit of that stack)
-    units = {name: full for name, full, _ in stacks}
-    (base_cost, base_mem), rest = traced[0], traced[1:]
-    terms, peak = [(1.0, base_cost)], base_mem.get("peak_bytes")
-    for ((name,), _), (cost, mem) in zip(points[1:], rest):
-        w = float(units[name] - 1)
-        terms += [(w, cost), (-w, base_cost)]
-        if peak is not None and "peak_bytes" in mem:
-            peak += w * (mem["peak_bytes"] - base_mem["peak_bytes"])
-    cost = op_cost.affine(terms)
-    mem = result["memory"]
-    if peak is None:
-        mem["error"] = base_mem["error"]
-    elif peak < mem["argument_bytes"]:
-        # the state alone is live at the start: a lower peak means the
-        # tracker missed allocations at some depth
-        mem["error"] = (f"MemTracker's peaks at the traced depths "
-                        f"{[m.get('peak_bytes') for _, m in traced]} do not "
-                        f"extrapolate to a peak above the arguments")
-    else:
-        mem["peak_bytes"] = int(peak)
-    result["traced_units"] = [units] if len(points) == 1 else [
-        {n: 2 if n in which else 1 for n in units} for which, _ in points]
+    got = cell_cost(cfg, shape, mesh, fsdp=True if fsdp is None else fsdp)
+    result["memory"] = got["memory"]
+    if got["optimizer"]:
+        result["optimizer"] = got["optimizer"]
+    result["trace_s"] = got["trace_s"]
+    result["traced_units"] = got["traced_units"]
+    if "traced_trips" in got:
+        result["traced_trips"] = got["traced_trips"]
+    cost = got["cost"]
 
     rl = RL.from_cost(cost, model_flops, chips)
     result["roofline"] = rl.to_dict()

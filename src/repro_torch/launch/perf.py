@@ -3,7 +3,8 @@ chosen cells under a sequence of hypothesis-driven variants and records
 the roofline terms of each (``dryrun.lower_cell`` on the fake production
 mesh).
 
-    PYTHONPATH=src python -m repro_torch.launch.perf --cell xlstm  [--out f.jsonl]
+    PYTHONPATH=src python -m repro_torch.launch.perf --cell xlstm \
+        [--out f.jsonl] [--variant chunk64]
 
 Cells and variant ladders are the JAX package's ``CELLS``; each variant
 also records the roofline with the fused regions (flash attention, SSD
@@ -57,10 +58,12 @@ CELLS = {
 }
 
 
-def run_cell(name: str, out: str | None):
+def run_cell(name: str, out: str | None, variant: str | None = None):
     spec = CELLS[name]
     rows = []
     for (tag, overrides), fsdp in zip(spec["variants"], spec["fsdp"]):
+        if variant is not None and tag != variant:
+            continue
         print(f"=== perf {name}:{tag} ===", flush=True)
         res = lower_cell(spec["arch"], spec["shape"], multi_pod=False,
                          fsdp=fsdp, verbose=False, overrides=overrides,
@@ -89,12 +92,18 @@ def run_cell(name: str, out: str | None):
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--cell", choices=sorted(CELLS) + ["all"], default="all")
+    ap.add_argument("--variant", default=None,
+                    help="run only this variant of the cell (one process "
+                         "a variant runs a ladder in parallel)")
     ap.add_argument("--out", default="results/perf_torch.jsonl")
     args = ap.parse_args(argv)
     cells = sorted(CELLS) if args.cell == "all" else [args.cell]
+    if args.variant is not None and not any(
+            t == args.variant for c in cells for t, _ in CELLS[c]["variants"]):
+        ap.error(f"no variant {args.variant!r} in {cells}")
     try:
         for c in cells:
-            run_cell(c, args.out)
+            run_cell(c, args.out, args.variant)
     finally:
         import torch.distributed as dist
         if dist.is_initialized():

@@ -83,7 +83,7 @@ def mlstm_apply(p, x, n_heads: int, state=None, chunk: int = 0):
         / math.sqrt(hd)
     v = pctx.reshape(xi @ p["wv"], (b, s, n_heads, hd)).float()
     ig = (xi @ p["wi"]).float()                          # (B,S,H) log-space
-    fg = F.logsigmoid((xi @ p["wf"]).float())
+    fg = pctx.logsigmoid((xi @ p["wf"]).float())
 
     if state is None:
         dev = x.device
@@ -94,11 +94,13 @@ def mlstm_apply(p, x, n_heads: int, state=None, chunk: int = 0):
         C, n, m = state
 
     if chunk and s > 1:
-        h, (C, n, m) = op_cost.region("mlstm_scan", _mlstm_chunked, q, k, v,
-                                      ig, fg, (C, n, m), chunk)
+        h, (C, n, m) = op_cost.region(
+            "mlstm_scan", pctx.per_shard_rows,
+            lambda *a: _mlstm_chunked(*a, chunk), q, k, v, ig, fg, (C, n, m))
     else:
-        h, (C, n, m) = op_cost.region("mlstm_scan", _mlstm_loop, q, k, v,
-                                      ig, fg, (C, n, m))
+        h, (C, n, m) = op_cost.region("mlstm_scan", pctx.per_shard_rows,
+                                      _mlstm_loop, q, k, v, ig, fg,
+                                      (C, n, m))
     h = pctx.reshape(h, (b, s, d_inner))
     h = h.to(x.dtype) * torch.sigmoid(xi @ p["wo_gate"])
     h = h + p["skip_scale"] * xi
@@ -108,13 +110,8 @@ def mlstm_apply(p, x, n_heads: int, state=None, chunk: int = 0):
 
 def _mlstm_loop(q, k, v, ig, fg, state):
     """The stabilized per-token recurrence over S steps."""
-    C, n, m = state
-    hs = []
-    for t in range(q.shape[1]):
-        (C, n, m), h_t = _mlstm_step(C, n, m, q[:, t], k[:, t], v[:, t],
-                                     ig[:, t], fg[:, t])
-        hs.append(h_t)
-    return torch.stack(hs, dim=1), (C, n, m)
+    return op_cost.scan(lambda st, *xt: _mlstm_step(*st, *xt), state,
+                        q, k, v, ig, fg)
 
 
 def _mlstm_chunked(q, k, v, ig, fg, state, chunk: int):
@@ -134,9 +131,9 @@ def _mlstm_chunked(q, k, v, ig, fg, state, chunk: int):
                                    device=q.device))
     C0, n0, m0 = state
     outs = []
-    for c0 in range(0, s + pad, chunk):
-        sl = slice(c0, c0 + chunk)
-        qc, kc, vc, ic, fc = q[:, sl], k[:, sl], v[:, sl], ig[:, sl], fg[:, sl]
+    # split once: the backward concatenates the chunks' gradients once
+    for qc, kc, vc, ic, fc in zip(*(torch.split(a, chunk, dim=1)
+                                    for a in (q, k, v, ig, fg))):
         F_ = torch.cumsum(fc, dim=1)                       # (B,ck,H)
         a = ic - F_
         M = torch.maximum(m0[:, None, :], torch.cummax(a, dim=1).values)
@@ -185,7 +182,7 @@ def slstm_init(init, d_model: int, n_heads: int, lead: tuple = ()) -> dict:
 
 def slstm_apply(p, x, state=None):
     """x: (B,S,D).  state = (c, n, m, h_prev)."""
-    b, s, d = x.shape
+    b, _, d = x.shape
     if state is None:
         dev, f32 = x.device, torch.float32
         c = torch.zeros((b, d), dtype=f32, device=dev)
@@ -199,13 +196,20 @@ def slstm_apply(p, x, state=None):
     xi = (x @ p["wi"]).float()
     xf = (x @ p["wf"]).float()
     xo = (x @ p["wo"]).float()
+    hs, state = pctx.per_shard_rows(_slstm_loop, xz, xi, xf, xo, (c, n, m, h),
+                                    weights=(p["r"],))
+    return hs.to(x.dtype) @ p["down"], state
 
-    hs = []
-    for t in range(s):
-        rec = (h.to(x.dtype) @ p["r"]).float()
-        z = torch.tanh(xz[:, t] + rec)
-        i_log = xi[:, t] + rec
-        f_log = F.logsigmoid(xf[:, t] + rec)
+
+def _slstm_loop(xz, xi, xf, xo, state, r):
+    """The stabilized sLSTM recurrence over S steps (the recurrent
+    weight ``r`` in the inputs' dtype): the stacked h and the state."""
+    def step(carry, zt, it, ft, ot):
+        c, n, m, h = carry
+        rec = (h.to(r.dtype) @ r).float()
+        z = torch.tanh(zt + rec)
+        i_log = it + rec
+        f_log = pctx.logsigmoid(ft + rec)
         m_new = torch.maximum(f_log + m, i_log)
         m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
         fdec = torch.exp(torch.where(torch.isfinite(m), f_log + m - m_safe,
@@ -213,8 +217,6 @@ def slstm_apply(p, x, state=None):
         iin = torch.exp(i_log - m_safe)
         c = fdec * c + iin * z
         n = torch.maximum(fdec * n + iin, torch.exp(-m_safe))
-        h = torch.sigmoid(xo[:, t]) * (c / n)
-        m = m_new
-        hs.append(h)
-    out = torch.stack(hs, dim=1).to(x.dtype) @ p["down"]
-    return out, (c, n, m, h)
+        h = torch.sigmoid(ot) * (c / n)
+        return (c, n, m_new, h), h
+    return op_cost.scan(step, state, xz, xi, xf, xo)

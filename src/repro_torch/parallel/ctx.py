@@ -14,9 +14,11 @@ a reshape, or of its partitioning of products (it reshards activations
 where GSPMD gathers an FSDP weight, and some versions refuse to flatten
 two sharded dims), so more helpers keep the model on the placements the
 rules name: ``place_cache``, ``write_rows``, ``write_prefix``,
-``gather_vocab``, ``embedding``, ``reshape``, ``einsum``, ``matmul`` and
+``gather_vocab``, ``embedding``, ``reshape``, ``einsum``, ``matmul``,
 ``per_shard``, which runs attention, independent over batch and heads,
-on each rank's shards.  With the context off each is the plain op.
+on each rank's shards, ``per_shard_rows``, which runs the xLSTM scans on
+each rank's rows, and ``logsigmoid``, whose backward DTensor has no rule
+for.  With the context off each is the plain op.
 
 Rules:
   * batch dims shard over DP axes only when divisible (decode with
@@ -294,16 +296,109 @@ def per_shard(fn, q, k, v, **kwargs):
                               shape=shape, stride=stride)
 
 
+def per_shard_rows(fn, *args, weights=()):
+    """``fn(*args, *weights)`` for a recurrence over the sequence (dim 1)
+    that is independent over the batch, dim 0 of every tensor in ``args``
+    and in its results (the xLSTM scans).  On DTensors each rank runs
+    ``fn`` on its own rows, so the scan's steps are local ops, as GSPMD
+    partitions a ``lax.scan`` over a batch-sharded carry (a single step,
+    S = 1, stays on DTensor's own rules): the activations keep their batch
+    shard
+    (any other shard gathered first), a plain tensor in ``args`` (a fresh
+    state of the global batch) is cut to the rank's rows, and ``weights``
+    are whole, their gradient a partial sum over the mesh dims that shard
+    the batch.  The results are placed as the activations were."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    from torch.utils._pytree import tree_flatten, tree_unflatten
+    flat, spec = tree_flatten(args)
+    lead = next((t for t in flat if _is_dtensor(t)), None)
+    if not (_STATE["on"] and lead is not None) or lead.shape[1] == 1:
+        return fn(*args, *weights)      # one step (decode): DTensor's rules
+    mesh = lead.device_mesh
+    rows = [p if p.is_shard() and p.dim == 0 else Replicate()
+            for p in lead.placements]
+    sharded = [m for m, p in enumerate(rows) if p.is_shard()]
+    lo, n_rows = _rank_range(lead.shape[0], mesh, sharded)
+
+    def local(t):
+        if isinstance(t, DTensor):
+            return t.redistribute(mesh, rows).to_local()
+        if isinstance(t, torch.Tensor):
+            return t.narrow(0, lo, n_rows)
+        return t
+    whole = [w.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(
+        grad_placements=[Partial() if p.is_shard() else Replicate()
+                         for p in rows]) if isinstance(w, DTensor) else w
+             for w in weights]
+    _STATE["on"] = False            # the shards are plain tensors
+    try:
+        out = fn(*tree_unflatten([local(t) for t in flat], spec), *whole)
+    finally:
+        _STATE["on"] = True
+    flat_out, out_spec = tree_flatten(out)
+
+    def placed(o):
+        shape = (lead.shape[0],) + tuple(o.shape[1:])
+        stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+        return DTensor.from_local(o, mesh, rows, run_check=False,
+                                  shape=shape, stride=stride)
+    return tree_unflatten([placed(o) for o in flat_out], out_spec)
+
+
+class _LogSigmoid(torch.autograd.Function):
+    """``F.logsigmoid`` on each rank's shard of a DTensor, both ways: the
+    gradient is brought to the input's placements (a partial sum summed)
+    and goes through the same ``log_sigmoid_backward`` on the shard."""
+
+    @staticmethod
+    def forward(ctx, x):
+        from torch.distributed.tensor import DTensor
+        local = x.to_local()
+        out, buf = torch.ops.aten.log_sigmoid_forward(local)
+        ctx.save_for_backward(local, buf)
+        ctx.mesh, ctx.pl = x.device_mesh, tuple(x.placements)
+        ctx.meta = (tuple(x.shape), tuple(x.stride()))
+        return DTensor.from_local(out, ctx.mesh, ctx.pl, run_check=False,
+                                  shape=x.shape, stride=x.stride())
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import DTensor
+        local, buf = ctx.saved_tensors
+        g = g.redistribute(ctx.mesh, ctx.pl).to_local()
+        dx = torch.ops.aten.log_sigmoid_backward(g, local, buf)
+        return DTensor.from_local(dx, ctx.mesh, ctx.pl, run_check=False,
+                                  shape=ctx.meta[0], stride=ctx.meta[1])
+
+
+def logsigmoid(x):
+    """``F.logsigmoid(x)``.  DTensor shards its forward (as pointwise
+    ops) but has no sharding rule for its backward
+    (``aten.log_sigmoid_backward``): where a gradient is needed, each rank
+    applies it to its own shard, forward and backward, as the elementwise
+    op it is."""
+    import torch.nn.functional as F
+    if not (_STATE["on"] and _is_dtensor(x) and x.requires_grad
+            and torch.is_grad_enabled()):
+        return F.logsigmoid(x)
+    return _LogSigmoid.apply(x)
+
+
 def _rank_offset(extent: int, mesh, mesh_dims) -> int:
     """This rank's first index of a dim of ``extent`` sharded over
     ``mesh_dims`` (major first), each split as ``torch.chunk`` splits
     it."""
+    return _rank_range(extent, mesh, mesh_dims)[0]
+
+
+def _rank_range(extent: int, mesh, mesh_dims) -> tuple[int, int]:
+    """(first index, length) of this rank's slice of such a dim."""
     coords, lo = mesh.get_coordinate(), 0
     for m in mesh_dims:
         step = -(-extent // int(mesh.mesh.shape[m]))
         start = min(coords[m] * step, extent)
         lo, extent = lo + start, min(step, extent - start)
-    return lo
+    return lo, extent
 
 
 def _is_dtensor(x) -> bool:

@@ -38,6 +38,11 @@ the real device, on ``meta`` tensors (the dry-run), or under DTensor.
   ``bytes_fused``, in which a region costs only its boundary bytes (its
   tensor arguments and results, touched once) — ``hlo_cost``'s
   ``fuse_inner_loops``, which credits such loops with VMEM semantics.
+* **Scans** (``scan``): the xLSTM recurrences, ``lax.scan``'s counterpart.
+  Under a counter made with ``trips=k`` a scan runs only its first k
+  steps, so the dry-run traces a long recurrence at two trip counts and
+  evaluates the count, affine in the trip count, at the sequence's
+  length, as ``hlo_cost`` multiplies a scan's body by its trip count.
 """
 
 from __future__ import annotations
@@ -46,12 +51,11 @@ from dataclasses import dataclass, field
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_flatten
 
 aten = torch.ops.aten
 
-#: the counters entered, innermost last: ``credit``, ``region`` and
-#: ``record_collective`` report to the innermost
+#: the counters entered, innermost last: ``credit``, ``region``,
+#: ``record_collective`` and ``scan`` report to the innermost
 _ACTIVE: list = []
 
 _DOTS = {aten.mm.default, aten.bmm.default, aten.addmm.default,
@@ -87,14 +91,29 @@ def _local(t):
     return getattr(t, "_local_tensor", t)
 
 
+def _tensors(obj) -> list:
+    """The tensors in ``obj``, through lists, tuples and dicts, in no
+    particular order (an op's arguments and results; ``tree_flatten``'s
+    leaves, without its specs, which would cost more than the rest of a
+    counted op)."""
+    out, todo = [], [obj]
+    while todo:
+        o = todo.pop()
+        if isinstance(o, torch.Tensor):
+            out.append(o)
+        elif isinstance(o, (list, tuple)):
+            todo.extend(o)
+        elif isinstance(o, dict):
+            todo.extend(o.values())
+    return out
+
+
 def tensor_bytes(obj) -> float:
     """Bytes of every tensor in ``obj`` (a DTensor's local shard)."""
-    flat, _ = tree_flatten(obj)
     total = 0
-    for t in flat:
-        if isinstance(t, torch.Tensor):
-            t = _local(t)
-            total += t.numel() * t.element_size()
+    for t in _tensors(obj):
+        t = _local(t)
+        total += t.numel() * t.element_size()
     return float(total)
 
 
@@ -166,11 +185,24 @@ def dot_flops(func, args, out) -> float:
 
 class OpCounter(TorchDispatchMode):
     """Counts what this rank executes while it is entered (see the module
-    docstring); the result is ``.cost``."""
+    docstring); the result is ``.cost``.
 
-    def __init__(self):
+    ``trips=k`` (k >= 2) cuts every ``scan`` run inside to its first k
+    steps, for counting only: the outputs of the steps not run are
+    copies of step k's, cut from the graph, so the values are not the
+    program's.  Steps 2..k-1 are alike (the first has no incoming carry
+    gradient, the last no outgoing one), and each step not run leaves one
+    undefined gradient slice, so every count is affine in k from k = 2 to
+    the sequence's length, where the program is the one that runs
+    uncut."""
+
+    def __init__(self, trips: int | None = None):
         super().__init__()
+        if trips is not None and trips < 2:
+            raise ValueError(f"a scan is cut to 2 or more steps, not "
+                             f"{trips}")
         self.cost = OpCost()
+        self.trips = trips
         self._regions = 0
 
     def __enter__(self):
@@ -183,8 +215,8 @@ class OpCounter(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
-        flat, _ = tree_flatten((args, kwargs))
-        if any(type(t).__name__ == "DTensor" for t in flat):
+        if any(type(t).__name__ == "DTensor"
+               for t in _tensors((args, kwargs))):
             return NotImplemented            # counted as DTensor's local ops
         out = func(*args, **kwargs)
         if torch._C._get_dispatch_mode(
@@ -297,3 +329,23 @@ def count(fn, *args, **kwargs) -> tuple[object, OpCost]:
     with OpCounter() as counter:
         out = fn(*args, **kwargs)
     return out, counter.cost
+
+
+def scan(step, carry, *xs):
+    """``lax.scan`` over dim 1 of ``xs``: ``carry, y_t = step(carry,
+    *x_t)`` for t = 0..S-1, and the y_t stacked on dim 1; returns (ys,
+    carry).  The sequences are unbound once, so the backward stacks the
+    steps' gradients once (slicing each step out would write a zeroed
+    full-length gradient a step).  Under a counter made with ``trips=k``
+    only the first k steps run (see ``OpCounter``)."""
+    n = xs[0].shape[1]
+    seq = [x.unbind(1) for x in xs]
+    cut = _ACTIVE[-1].trips if _ACTIVE else None
+    run = n if cut is None else min(n, cut)
+    ys = []
+    for t in range(run):
+        carry, y = step(carry, *(s[t] for s in seq))
+        ys.append(y)
+    if run < n:
+        ys += [ys[-1].detach()] * (n - run)
+    return torch.stack(ys, dim=1), carry

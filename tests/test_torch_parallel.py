@@ -27,6 +27,12 @@ package's, on the CPU.
   formula.
 * Elastic restore: a checkpoint saved under a (4, 2) mesh restores under
   a (2, 2) one bit for bit, in the same ``gloo`` world (8 ranks).
+* ``ctx.per_shard_rows``: in the same world, the sLSTM and mLSTM blocks
+  (per token and chunked) with the batch sharded over 'data' run their
+  scans on each rank's rows; outputs and the gradients of the input and
+  every weight (the sLSTM's recurrent ``r`` summed over the ranks' rows)
+  equal the plain blocks on the whole batch within 1e-5; the outputs keep
+  the input's batch shard.
 """
 
 import os
@@ -513,3 +519,32 @@ def test_elastic_restore_across_mesh_sizes(gloo_results):
             res["local_e"], e[rows, cols_e].view(torch.int16).numpy())
         assert list(res["placements_w"]) == ["S(0)", "S(1)"] or \
             list(res["placements_w"]) == ["Shard(dim=0)", "Shard(dim=1)"]
+
+
+@pytest.mark.parametrize("block", ["slstm", "mlstm", "mlstm_c4"])
+def test_xlstm_scans_on_each_ranks_rows(gloo_results, block):
+    """8 ranks on a (4, 2) mesh, each running the block's scan on its 2
+    rows: the gathered outputs and gradients equal the plain block's on
+    all 8 rows (1e-5: a rank's products over 2 rows, and the weights'
+    gradients summed over 4 ranks, round apart from one pass over 8)."""
+    x, g = (torch.from_numpy(a) for a in W.xlstm_inputs())
+    want = {k: v.detach().numpy() for k, v in W.xlstm_blocks(
+        x, g, W.xlstm_params()).items() if k.startswith(block + "_")}
+    assert f"{block}_y" in want and f"{block}_dx" in want
+    assert (f"{block}_dr" in want) == (block == "slstm")
+    for rank in range(4):
+        res = gloo_results[rank]
+        for k, v in want.items():
+            np.testing.assert_allclose(res[f"xlstm_{k}"], v, rtol=1e-5,
+                                       atol=1e-5, err_msg=f"{k} rank {rank}")
+            # the activations keep their batch shard; ``r``'s gradient is
+            # summed where the scan hands it back (the weight is read
+            # whole), the projections' stay partial sums (DTensor's rule)
+            want_pl = (["S(0)", "R"] if k.endswith(("_y", "_dx")) else
+                       ["R", "R"] if k == "slstm_dr" else ["P(sum)", "R"])
+            assert list(res[f"xlstm_{k}_placements"]) == want_pl, k
+        if block == "slstm":                   # rank r holds rows of data r//2
+            lo = 2 * (rank // 2)
+            np.testing.assert_allclose(res["xlstm_slstm_y_local"],
+                                       want["slstm_y"][lo:lo + 2],
+                                       rtol=1e-5, atol=1e-5)

@@ -7,12 +7,18 @@ the dry-run launcher, on the CPU.
   its local share (19,660,800), not the global product's 157,286,400
   (what ``FlopCounterMode`` reports), and a redistribution is counted as
   an all-gather of its group's size.
-* On reduced dense, moe and hybrid configs, the port's dot FLOPs of a
-  prefill and a decode step equal ``repro.parallel.hlo_cost``'s count of
-  the JAX compiled function exactly; a train step's differ by the pinned
-  amounts the test names.
+* On reduced dense, moe, hybrid and xLSTM configs, the port's dot FLOPs
+  of a prefill and a decode step equal ``repro.parallel.hlo_cost``'s
+  count of the JAX compiled function exactly; a train step's differ by
+  the pinned amounts the test names.
 * Kernel credits and fused regions; the roofline's terms with the H100
   constants and the link a group crosses.
+* The dry-run's depth extrapolation: for dense, moe, hybrid, enc-dec and
+  xLSTM steps on a fake (4, 2) mesh, the count from
+  one and two units of each stack (a prefill's from two and three)
+  equals a full trace at a third depth, field for field.
+* ``tools/hlo_dots.py``'s dots of a JAX dry-run cell sum to its
+  ``flops_per_chip``.
 * The dry-run CLI on a (4, 2) mesh of the fake backend, the twins of
   ``tests/test_cli.py``'s and ``tests/test_parallel.py``'s dry-run tests.
 """
@@ -133,8 +139,18 @@ def test_rank_count_is_the_local_share(fake_mesh_4x2):
 #    2,560-FLOP sliver of the routing into a dot where PyTorch multiplies;
 #  * the backward of the SSD scan's three-operand einsums contracts in
 #    another order: a 65,536-FLOP product where XLA has a 4,096-FLOP one,
-#    once per Mamba2 layer (zamba2: 6).
+#    once per Mamba2 layer (zamba2: 6);
+#  * xLSTM (2 pairs, 4 heads of 64 in the mLSTM, d 128 in the sLSTM):
+#    the backward of the mLSTM step's q.C product computes its C
+#    gradient as an outer-product bmm, and of the q.n product two rank-1
+#    bmms, which XLA computes elementwise (XLSTM_OUTER: per pair and
+#    step, 2 x B x H x hd x hd and 2 x 2 x B x H x hd); and the sLSTM's
+#    first step has no h gradient to form (its state is a constant zero),
+#    where the scan body of XLA computes one every step (XLSTM_H0: per
+#    pair, 2 x B x d x d).
 LOGITS = 2 * 2 * 16 * 128 * 512
+XLSTM_OUTER = 2 * 16 * (2 * 2 * 4 * 64 * 64 + 2 * 2 * 2 * 4 * 64)
+XLSTM_H0 = 2 * (2 * 2 * 128 * 128)
 FLOP_DIFF = {
     ("smollm-360m", "prefill"): 0, ("smollm-360m", "decode"): 0,
     ("smollm-360m", "train"): LOGITS,
@@ -142,6 +158,8 @@ FLOP_DIFF = {
     ("deepseek-moe-16b", "train"): LOGITS + 655_360 + 1_048_576 - 2_560,
     ("zamba2-2.7b", "prefill"): 0, ("zamba2-2.7b", "decode"): 0,
     ("zamba2-2.7b", "train"): LOGITS + 6 * (65_536 - 4_096),
+    ("xlstm-125m", "prefill"): 0, ("xlstm-125m", "decode"): 0,
+    ("xlstm-125m", "train"): LOGITS + XLSTM_OUTER - XLSTM_H0,
 }
 B, S, MAXLEN = 2, 16, 24
 
@@ -153,7 +171,7 @@ def _requires_grad(tree):
 
 
 @pytest.mark.parametrize("arch", ["smollm-360m", "deepseek-moe-16b",
-                                  "zamba2-2.7b"])
+                                  "zamba2-2.7b", "xlstm-125m"])
 def test_dot_flops_equal_jax_hlo(arch):
     jcfg, cfg = jax_get_arch(arch).reduced(), get_arch(arch).reduced()
     assert (cfg.d_model, cfg.vocab) == (128, 512)
@@ -227,6 +245,49 @@ def test_affine_extrapolation():
     assert c.kernels["rmsnorm"]["launches"] == 3 + 31 * 2
 
 
+# each family at its reduced widths, a global batch of 8 (2 rows a rank)
+# and 32 positions: traced at one and two units of each stack (a prefill
+# at two and three) and held at a third depth (the xLSTM train and
+# prefill steps, whose scans are also cut, are
+# ``test_torch_dryrun_xlstm.py``'s)
+@pytest.mark.parametrize("arch,kind", [
+    ("smollm-360m", "train"), ("smollm-360m", "prefill"),
+    ("smollm-360m", "decode"), ("deepseek-moe-16b", "prefill"),
+    ("zamba2-2.7b", "train"), ("zamba2-2.7b", "prefill"),
+    ("zamba2-2.7b", "decode"), ("seamless-m4t-medium", "train"),
+    ("seamless-m4t-medium", "prefill"), ("xlstm-125m", "decode")])
+def test_depth_extrapolation_equals_full_trace(fake_mesh_4x2, arch, kind):
+    """The dry-run's extrapolated count equals the whole step traced once
+    at that depth, field for field (dot FLOPs, bytes, fused bytes,
+    collectives by kind, count and group, dot calls, kernel credits)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    first = 2 if kind == "prefill" else 1
+    cfg = get_arch(arch).reduced()
+    deep = {}
+    for _, _, fields in dryrun._stacks(cfg):
+        deep.update(fields(first + 2))
+    cfg = cfg.scaled(**deep)
+    names = [n for n, _, _ in dryrun._stacks(cfg)]
+    shape = ShapeConfig("t", 32, 8, kind)
+    got = dryrun.cell_cost(cfg, shape, fake_mesh_4x2)
+    assert got["traced_units"][0] == {n: first for n in names}
+    assert len(got["traced_units"]) == 1 + len(names)
+    full = dryrun.cell_cost(cfg, shape, fake_mesh_4x2, extrapolate=False)
+    assert full["traced_units"] == [{n: first + 2 for n in names}]
+
+    def fields(cost):
+        return {f: getattr(cost, f) for f in (
+            "flops", "bytes_accessed", "bytes_fused", "collective_bytes",
+            "collectives", "collective_counts", "collective_groups",
+            "dot_calls", "kernels")}
+    want = fields(full["cost"])
+    assert want["flops"] > 0 and want["bytes_accessed"] > 0
+    assert fields(got["cost"]) == want
+    assert got["memory"]["argument_bytes"] == \
+        full["memory"]["argument_bytes"]
+
+
 class TestRooflineModel:
     def test_terms_and_bottleneck(self):
         r = RL.Roofline(flops=989e12, bytes_accessed=3.35e12 * 2,
@@ -269,6 +330,24 @@ def test_dryrun_cli_tiny_decode(arch, tmp_path):
     assert row["status"] == "ok" and row["chips"] == 8
     assert row["roofline"]["flops_per_chip"] > 0
     assert row["memory"]["argument_bytes"] > 0
+
+
+def test_hlo_dots_sums_to_the_jax_dryrun_flops():
+    """``tools/hlo_dots.py`` (the JAX dry-run's dots by shape, each times
+    the trip counts of its loops) sums to the cell's ``flops_per_chip``."""
+    env = dict(os.environ, DRYRUN_DEVICES="8", DRYRUN_MESH="4,2",
+               PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
+    res = subprocess.run(
+        [sys.executable, str(ROOT / "tools" / "hlo_dots.py"), "xlstm-125m",
+         "decode_32k", "--top", "3"],
+        capture_output=True, text=True, env=env, timeout=300, cwd=ROOT)
+    assert res.returncode == 0, res.stderr[-2000:]
+    lines = res.stdout.strip().splitlines()
+    assert lines[-2].startswith("sum ") and \
+        lines[-1].startswith("flops_per_chip ")
+    total, want = float(lines[-2].split()[1]), float(lines[-1].split()[1])
+    assert total > 0 and total == want
+    assert any("/w" in ln for ln in lines[:-2])   # a dot inside the scan
 
 
 def test_perf_cells_equal_jax():

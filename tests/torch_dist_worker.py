@@ -1,8 +1,9 @@
 """One rank of ``tests/test_torch_parallel.py``'s ``gloo`` world: the
 port's int8 compressed all-reduce and GPipe pipeline over a 4-rank group,
-and a checkpoint saved under a (4, 2) mesh and restored under a (2, 2)
-one.  ``torch.multiprocessing.spawn`` runs ``run`` once per rank; rank 0
-writes what the test compares to ``out_dir``."""
+the xLSTM blocks' scans on each rank's batch rows (``ctx.per_shard_rows``)
+under a (4, 2) mesh, and a checkpoint saved under that mesh and restored
+under a (2, 2) one.  ``torch.multiprocessing.spawn`` runs ``run`` once
+per rank; ranks 0-3 write what the test compares to ``out_dir``."""
 
 import os
 
@@ -37,14 +38,55 @@ def elastic_leaves():
             "e": (np.arange(8 * 6, dtype=np.float32).reshape(8, 6) / 7)}
 
 
+XB, XS, XD, XH = 8, 6, 16, 2      # the xLSTM blocks' batch, length, width
+
+
+def xlstm_inputs():
+    rng = np.random.default_rng(3)
+    return tuple(rng.normal(size=(XB, XS, XD)).astype(np.float32)
+                 for _ in range(2))
+
+
+def xlstm_params():
+    from repro_torch.models import layers, xlstm
+    init = layers.ParamInit(torch.Generator().manual_seed(0), "cpu")
+    return {"slstm": xlstm.slstm_init(init, XD, XH),
+            "mlstm": xlstm.mlstm_init(init, XD, XH)}
+
+
+def xlstm_blocks(x, g, params, place=lambda t: t):
+    """The sLSTM and mLSTM blocks (per token, and in chunks of 4) on
+    ``x``, each weight in f32 and placed by ``place``: every block's
+    output and the gradients of ``(output * g).sum()`` with respect to
+    ``x`` and each weight, by name."""
+    from repro_torch.models import xlstm
+    blocks = {"slstm": ("slstm", lambda p, x: xlstm.slstm_apply(p, x)[0]),
+              "mlstm": ("mlstm", lambda p, x: xlstm.mlstm_apply(p, x, XH)[0]),
+              "mlstm_c4": ("mlstm", lambda p, x: xlstm.mlstm_apply(
+                  p, x, XH, chunk=4)[0])}
+    out = {}
+    for name, (kind, fn) in blocks.items():
+        p = {k: place(v.float()).requires_grad_()
+             for k, v in params[kind].items()}
+        xx = place(x.clone()).requires_grad_()
+        y = fn(p, xx)
+        (y * place(g)).sum().backward()
+        out[f"{name}_y"] = y
+        out[f"{name}_dx"] = xx.grad
+        out.update({f"{name}_d{k}": v.grad for k, v in p.items()})
+    return out
+
+
 def _tensors(tree):
     return {k: torch.from_numpy(v.copy()) for k, v in tree.items()}
 
 
 def run(rank: int, world: int, store_dir: str, out_dir: str) -> None:
     from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
-    from torch.distributed.tensor import Shard, distribute_tensor
+    from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                          distribute_tensor)
     from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.parallel import ctx as pctx
     from repro_torch.parallel.compression import compressed_psum_grads
     from repro_torch.parallel.pipeline import pipeline_apply
 
@@ -70,9 +112,27 @@ def run(rank: int, world: int, store_dir: str, out_dir: str) -> None:
                                  sub)
             out["pipeline"] = got.numpy()
 
-        # elastic: saved under (4, 2), restored under (2, 2) on ranks 0-3
         mesh = init_device_mesh("cpu", (4, 2),
                                 mesh_dim_names=("data", "model"))
+        # the xLSTM blocks with x batch-sharded over 'data', the weights
+        # replicated: each rank's outputs and the weights' gradients
+        rows = (Shard(0), Replicate())
+        x, g = (torch.from_numpy(a) for a in xlstm_inputs())
+        pctx.configure(mesh)
+        try:
+            got = xlstm_blocks(x, g, xlstm_params(), lambda t: (
+                t if isinstance(t, DTensor) else distribute_tensor(
+                    t, mesh, rows if t.shape[0] == XB and t.dim() == 3
+                    else (Replicate(), Replicate()))))
+        finally:
+            pctx.disable()
+        for k, v in got.items():
+            out[f"xlstm_{k}"] = v.detach().full_tensor().numpy()
+            out[f"xlstm_{k}_placements"] = np.array(
+                [str(p) for p in v.placements])
+        out["xlstm_slstm_y_local"] = got["slstm_y"].detach().to_local().numpy()
+
+        # elastic: saved under (4, 2), restored under (2, 2) on ranks 0-3
         pl = (Shard(0), Shard(1))
         tree = {k: distribute_tensor(v, mesh, pl, src_data_rank=None)
                 for k, v in _tensors(elastic_leaves()).items()}
