@@ -1729,6 +1729,11 @@ TRAIN_DIR = ROOT / "build" / "train_full"
 #: steps whose wall the median is taken over (steps 5-30), and the steps
 #: profiled for the device's busy share
 TRAIN_STEADY, TRAIN_PROFILED = 4, 3
+#: the losses recorded in PERF.md (NVIDIA H100 80GB HBM3, torch 2.11),
+#: printed beside this run's: the launcher's at steps 1/10/20/30, and
+#: ``train_100m --full-width``'s (phase 11) at steps 1/10/20
+RECORDED_TRAIN_LOSSES = {1: 11.1826, 10: 6.4652, 20: 5.6753, 30: 5.6651}
+RECORDED_EXAMPLE_LOSSES = {1: 11.3063, 10: 6.7104, 20: 5.8443}
 H100_BF16_FLOPS = 989e12      # dense, NVIDIA data sheet
 #: a training step's rows at smollm's width (batch 8 x seq 1024), and the
 #: input sets its timing takes in turn (4 x 31.5 MB of x and g)
@@ -1919,6 +1924,17 @@ def train_card_vs_cpu(name) -> dict:
             "grad_err": worst, "grad_tol": tol, "leaves": len(host)}
 
 
+def beside_record(got: dict, recorded: dict) -> str:
+    """A run's losses by step beside the recorded ones, to the 4 places
+    both are printed with (a reading, not a check)."""
+    moved = [k for k, v in recorded.items() if round(got.get(k, -1.0), 4)
+             != v]
+    return (f"recorded losses at steps {'/'.join(map(str, recorded))}: "
+            + ", ".join(f"{v:.4f}" for v in recorded.values()) + "; this run "
+            + ("equal to 4 places" if not moved else
+               "differs at steps " + ", ".join(map(str, moved))))
+
+
 def train_full() -> dict:
     """Full-width smollm-360m trained by the launcher as a subprocess and
     by the same command in this process (launch counters zeroed just
@@ -2105,6 +2121,8 @@ def train_phase(smi: str) -> dict:
         f"parameters, remat on), {' '.join(TRAIN_ARGV)}: the launcher "
         f"exited 0 in {full['sub_s']:.1f} s, losses at steps "
         f"{full['logged']}: {[round(v, 4) for v in full['losses']]}")
+    log("    " + beside_record(dict(zip(full["logged"], full["losses"])),
+                              RECORDED_TRAIN_LOSSES))
     log(f"    the same command in this process ({full['run_s']:.1f} s): "
         f"its {full['leaves']} params and optimizer-state leaves equal the "
         f"launcher's final checkpoint bit for bit (restored in "
@@ -2518,6 +2536,8 @@ def examples_phase(smi: str) -> dict:
                                       steps)
         + f"; step walls (ms) " + ", ".join(f"{d:.0f}" for _, _, d in steps)
         + f"; {wall:.1f} s in all; kernel launches {train}")
+    log("    " + beside_record({i: x for i, x, _ in steps},
+                              RECORDED_EXAMPLE_LOSSES))
     return {"serve": {"wall_s": serve_wall, "counts": serve, **field},
             "train": {"wall_s": wall, "losses": losses, "counts": train},
             "counts": {k: serve[k] + train[k] for k in serve}}

@@ -65,9 +65,11 @@ def _ssd_scan(state, xh, bh, ch, dt, decay, ck: int):
     causal = torch.tril(torch.ones((ck, ck), device=xh.device))[None, :, :,
                                                                  None]
     ys = []
-    for c0 in range(0, s + pad, ck):
-        sl = slice(c0, c0 + ck)
-        xc, bc, cc, dtc, dc = (a[:, sl] for a in (xh_, bh_, ch_, dt_, dec_))
+    # cut once (JAX's ``chunkify``): the backward joins the chunks'
+    # gradients once, where slicing each chunk out would write a zeroed
+    # full-length gradient a chunk
+    for xc, bc, cc, dtc, dc in zip(*(torch.split(a, ck, dim=1) for a in (
+            xh_, bh_, ch_, dt_, dec_))):
         # cumulative decay within the chunk
         logd = torch.log(torch.clamp(dc, min=1e-20))               # (B,ck,H)
         cum = torch.cumsum(logd, dim=1)

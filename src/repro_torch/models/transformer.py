@@ -321,9 +321,12 @@ def chunked_loss(cfg, params, hidden, labels):
         labels = F.pad(labels, (0, pad), value=-1)
     tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
     cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
-    for c0 in range(0, s + pad, chunk):
-        t, n = checkpoint(_chunk_nll, hidden[:, c0:c0 + chunk],
-                          labels[:, c0:c0 + chunk], w, use_reentrant=False)
+    # cut once (JAX's reshape + scan): the backward joins the chunks'
+    # gradients once, where slicing each chunk out would write a zeroed
+    # full-length gradient a chunk
+    for h, lab in zip(torch.split(hidden, chunk, dim=1),
+                      torch.split(labels, chunk, dim=1)):
+        t, n = checkpoint(_chunk_nll, h, lab, w, use_reentrant=False)
         tot, cnt = tot + t, cnt + n
     return tot / torch.clamp(cnt, min=1.0)
 
