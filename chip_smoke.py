@@ -24,10 +24,20 @@ Phases (any failure exits non-zero and prints no result line):
      (``decode_attention_split_ref``: the same 16-key granules dealt to 8
      ranks, the same rank-order combine, on the inputs cast to f32) at
      lengths 0, 1, 15, 16, 17, 127, 128, 129 and 1024: atol 1e-4 / rtol
-     4e-3.  Two calls give the same bits.  Then at every registered arch's
-     (G, Hkv, hd), B in {1, 8}: 38-50 keys of a 64-key cache, and the
-     enc-dec cross-attention over 8 frames of one, against both plain
-     versions and the split model, keys past the length never read;
+     4e-3.  Two calls give the same bits.  Under a sliding window of 1,
+     15, 16, 17, 100 and 2048 keys at each of those lengths: against the
+     windowed split model (the row's origin at its first attended key) at
+     the same bars, two calls bit-equal, against the layer's windowed
+     plain version at 1e-2 wherever a key is left (a row with none gets
+     zeros), and a window covering every row gives the bits of no
+     window.  Then at every registered arch's (G, Hkv, hd), B in {1, 8}:
+     38-50 keys of a 64-key cache, and the enc-dec cross-attention over 8
+     frames of one, against both plain versions and the split model, keys
+     past the length never read, and the same under a 17-key window.  The
+     windowed kernel is timed at B=1, 15/5 heads, hd 64, the last 1024 of
+     4228 keys, beside its plain version and
+     ``scaled_dot_product_attention`` with the same boolean mask (the
+     row's ``window_*`` keys in the JSON line);
    * paged decode attention, B in {1, 3, 8}, ragged lengths both at the
      38-47 keys the batched path serves and up to ``max_len``, a poisoned
      pad page 0.  Against the plain version on the bf16 inputs (scores in
@@ -77,6 +87,14 @@ Phases (any failure exits non-zero and prints no result line):
    kernel launches 32 times per decode step, the prefix cache hits, and
    the greedy tokens equal those of the same trace with the prefix cache
    off.  A small input is checked against the plain versions on the CPU.
+   4b. Sliding-window decode at full width: smollm-360m with
+   ``sliding_window`` 24 serves one 32-token greedy prompt for 32 decode
+   steps through ``prefill_fn`` + ``decode_fn``, the counters zeroed just
+   before and read just after: every step launches ``decode_attention``
+   32 times.  The same run with the attention through
+   ``decode_attention_plain`` on the card: step-1 logits within phase 5's
+   bf16 tolerance, greedy tokens equal (where they part, the twin's
+   top-2 margin is printed and must be within twice that tolerance).
 5. Every model family (the smollm weights freed first, and re-made from
    the same seed for phase 7):
    * deepseek-moe-16b at full width (28 layers, 64 experts top-6 plus 2
@@ -169,8 +187,10 @@ Phases (any failure exits non-zero and prints no result line):
      ``rmsnorm`` a decode step, 129 ``rmsnorm`` and 65 ``rmsnorm_bwd`` a
      training step);
    * (c) ``python -m repro_torch.launch.dryrun`` for smollm-360m
-     decode_32k, llama3-8b train_4k, and xlstm-125m train_4k and
+     decode_32k, llama3-8b train_4k, xlstm-125m train_4k and
      prefill_32k (traced with their scans cut to 2 and 3 trips), and
+     zamba2-2.7b decode_32k (its Mamba2 update on each rank's (batch,
+     head) shards), and
      ``python -m repro_torch.launch.perf --cell xlstm`` (one process a
      variant), on the fake 16 x 16 mesh, as concurrent subprocesses on the
      host: each exits 0 with an ``ok`` row; each row's terms and wall are
@@ -186,8 +206,8 @@ Phases (any failure exits non-zero and prints no result line):
    ``rmsnorm`` and 25 ``rmsnorm_bwd`` launches a step.
 9. Print tokens/s, decode-step walls, per-kernel launches and times, the
    kernel JSON line (with each kernel's back-to-back wall a call,
-   ``wall_ms``; launches summed over phases 3-8, 10 and 11), and last the
-   device JSON line.
+   ``wall_ms``; launches summed over phases 3-8, 4b, 10 and 11), and last
+   the device JSON line.
 """
 
 from __future__ import annotations
@@ -304,6 +324,12 @@ def assert_close(name, got, want, atol, rtol):
 #: lengths that start, fill and cross a 16-key granule (one page) and the
 #: 8-rank deal (128 keys), and the capacity
 BOUNDARY_LENGTHS = (0, 1, 15, 16, 17, 127, 128, 129, 1024)
+#: sliding windows that cut those rows, and one at least as long as any
+#: row (the bits of no window)
+WINDOWS = (1, 15, 16, 17, 100, 2048)
+#: the windowed kernel's timed shape: B = 1, one row of this many keys in
+#: a cache as long, attending to the last WINDOW_TIMED of them
+WINDOW_TIMED_KEYS, WINDOW_TIMED = 4228, 1024
 
 
 def check_split(name, kern, split, args, lens) -> float:
@@ -321,10 +347,41 @@ def check_split(name, kern, split, args, lens) -> float:
     return max_err(got, want)
 
 
+def check_window(name, q, k, v, ln, lens, window: int) -> float:
+    """The windowed kernel on (q, k, v, ln) against the windowed split
+    model (f32 inputs; ``check_split``'s bars, two calls bit-equal) and
+    the layer's windowed plain version on the bf16 inputs (1e-2, the rows
+    that attend to a key: the formula gives NaN where none is left, the
+    kernel 0); a window at least as long as every row gives the bits of
+    no window.  Returns the max |err| against the split model."""
+    from repro_torch.kernels.decode_attention.ops import decode_attention_cuda
+    from repro_torch.kernels.decode_attention.ref import (
+        attended_keys, decode_attention_split_ref)
+    from repro_torch.models.layers import decode_attention_plain
+    kern = lambda *a: decode_attention_cuda(*a, window=window)  # noqa: E731
+    split = lambda *a: decode_attention_split_ref(  # noqa: E731
+        *a, window=window)
+    what = f"{name} window {window}"
+    err = check_split(what, kern, split, (q, k, v, ln), lens)
+    got = kern(q, k, v, ln)
+    live = attended_keys(ln.long(), k.shape[1], window) > 0
+    if not torch.equal(got[~live], torch.zeros_like(got[~live])):
+        raise AssertionError(f"{what}: a row with no key is not zero")
+    want = decode_attention_plain(q, k, v, ln, window)
+    assert_close(f"{what} (bf16 layer plain)", got[live], want[live], 1e-2,
+                 1e-2)
+    if window >= max(int(n) for n in lens) and not torch.equal(
+            got, decode_attention_cuda(q, k, v, ln)):
+        raise AssertionError(f"{what}: a window covering every row differs "
+                             f"from no window")
+    return err
+
+
 def check_decode_attention(mc, max_len: int) -> dict:
     """The contiguous-cache kernel at the one-at-a-time path's shapes (a
-    ``max_len`` cache, 38-50 keys) and at long lengths (up to 1024).  The
-    JSON row times the path's shape, B = 1; the long shape is timed too."""
+    ``max_len`` cache, 38-50 keys) and at long lengths (up to 1024), with
+    and without a sliding window.  The JSON row times the path's shape,
+    B = 1; the long shape and the windowed one are timed too."""
     from repro_torch.kernels.decode_attention.ops import decode_attention_cuda
     from repro_torch.kernels.decode_attention.ref import (
         decode_attention_ref, decode_attention_split_ref)
@@ -373,7 +430,7 @@ def check_decode_attention(mc, max_len: int) -> dict:
             if (s, b) in ((max_len, 1), (1024, 8)):
                 timed[(s, b)] = (q, k, v, ln, lens)
 
-    worst_split = 0.0
+    worst_split = worst_window = 0.0
     for n in BOUNDARY_LENGTHS:
         shape = (3, 1024, hkv, hd)
         k = torch.randn(shape, generator=g, device=dev).bfloat16()
@@ -384,6 +441,9 @@ def check_decode_attention(mc, max_len: int) -> dict:
         worst_split = max(worst_split, check_split(
             "decode_attention B=3 S=1024", decode_attention_cuda,
             decode_attention_split_ref, (q, k, v, ln), lens))
+        for w in WINDOWS:
+            worst_window = max(worst_window, check_window(
+                "decode_attention B=3 S=1024", q, k, v, ln, lens, w))
 
     def times(s, b):
         q, k, v, ln, lens = timed[(s, b)]
@@ -415,6 +475,7 @@ def check_decode_attention(mc, max_len: int) -> dict:
                 "bound_by": b_by, "keys": n_keys}
 
     main, long = times(max_len, 1), times(1024, 8)
+    win = window_times(hkv, hd, h, layers, g)
     return {"name": "decode_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
             "replaces": "src/repro/kernels/decode_attention/"
@@ -430,7 +491,59 @@ def check_decode_attention(mc, max_len: int) -> dict:
                      f"{long['plain_ms']:.4f} ms, bound "
                      f"{long['bound_ms']:.5f} ms, sdpa "
                      f"{long['library_ms']:.4f} ms (device); wall "
-                     f"{long['wall']}"}
+                     f"{long['wall']}; windowed: max|err| vs split model "
+                     f"{worst_window:.3g} at windows {WINDOWS}",
+            **{f"window_{k}": win[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "keys")}, "window_wall_ms": win["wall"]["ms"]}
+
+
+def window_times(hkv: int, hd: int, h: int, layers: int, g) -> dict:
+    """The windowed kernel timed at B = 1: one row of
+    ``WINDOW_TIMED_KEYS`` keys in a cache as long, attending to its last
+    ``WINDOW_TIMED``; one cache a layer, walked as a decode step walks
+    them.  Beside it the windowed plain version (f32) and
+    ``scaled_dot_product_attention`` with the same boolean mask; the
+    bound is the window's K and V bytes (and q, out, the length) over the
+    card's memory rate."""
+    from repro_torch.kernels.decode_attention.ops import decode_attention_cuda
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    dev = torch.device("cuda")
+    s, w = WINDOW_TIMED_KEYS, WINDOW_TIMED
+    k = torch.randn((layers, 1, s, hkv, hd), generator=g,
+                    device=dev).bfloat16()
+    v = torch.randn((layers, 1, s, hkv, hd), generator=g,
+                    device=dev).bfloat16()
+    q = torch.randn((1, h, hd), generator=g, device=dev).bfloat16()
+    ln = torch.tensor([s], dtype=torch.int32, device=dev)
+    assert_close("decode_attention window timed shape (f32 plain)",
+                 decode_attention_cuda(q, k[0], v[0], ln, window=w),
+                 decode_attention_ref(q.float(), k[0].float(), v[0].float(),
+                                      ln, window=w), 1e-4, 4e-3)
+    kt = k.transpose(2, 3).contiguous()           # (L, 1, Hkv, S, hd)
+    vt = v.transpose(2, 3).contiguous()
+    q4 = q[:, :, None, :]
+    pos = torch.arange(s, device=dev)[None, :]
+    mask = ((pos < ln[:, None]) & (pos >= ln[:, None] - w))[:, None, None, :]
+    it = iter(range(10 ** 9))
+
+    def kern():
+        i = next(it) % layers
+        decode_attention_cuda(q, k[i], v[i], ln, window=w)
+
+    def plain():
+        i = next(it) % layers
+        decode_attention_ref(q, k[i], v[i], ln, window=w)
+
+    def library():
+        i = next(it) % layers
+        F.scaled_dot_product_attention(q4, kt[i], vt[i], attn_mask=mask,
+                                       enable_gqa=True)
+
+    nbytes = q.numel() * 2 * 2 + 2 * w * hkv * hd * 2 + ln.numel() * 4
+    b_ms, b_by = bound(nbytes, 4.0 * w * h * hd)
+    return {**timings(kern, plain, library), "bound_ms": b_ms,
+            "bound_by": b_by, "keys": w}
 
 
 def family_attention_shapes() -> list[tuple]:
@@ -450,6 +563,12 @@ def family_attention_shapes() -> list[tuple]:
     return out
 
 
+#: the window every family's shape is checked under: it cuts the 38-50
+#: keys of the self-attention rows mid-granule, and covers the
+#: cross-attention's frames
+FAMILY_WINDOW = 17
+
+
 def check_family_attention(max_len: int) -> dict:
     """The contiguous-cache kernel at every served (G, Hkv, hd), B in
     {1, 8}: self-attention over 38-50 keys of a ``max_len`` cache, and the
@@ -457,7 +576,8 @@ def check_family_attention(max_len: int) -> dict:
     ``max_len`` cache.  Against the plain version on the inputs cast to f32
     (atol 1e-4 / rtol 4e-3), the layer's bf16 plain version (1e-2) and the
     split model (1e-4 / 4e-3); keys past each row's length are never
-    read (set to +-99, the same bits)."""
+    read (set to +-99, the same bits); and under a sliding window of
+    ``FAMILY_WINDOW`` keys (``check_window``)."""
     from repro_torch.kernels.decode_attention.ops import decode_attention_cuda
     from repro_torch.kernels.decode_attention.ref import (
         decode_attention_ref, decode_attention_split_ref)
@@ -495,6 +615,8 @@ def check_family_attention(max_len: int) -> dict:
             if not torch.equal(decode_attention_cuda(q, k2, v2, ln), got):
                 raise AssertionError(f"{name}: keys past the length leak "
                                      f"into the output")
+            worst_f32 = max(worst_f32, check_window(
+                name, q, k, v, ln, lens.tolist(), FAMILY_WINDOW))
         names.append(f"{arch}{' cross' if cross else ''} "
                      f"({group}, {hkv}, {hd})")
     return {"max_abs_err": worst, "max_abs_err_f32": worst_f32,
@@ -1117,6 +1239,94 @@ def serve_router(mc, params) -> dict:
             "merges": st["merges"], "scale_ups": st["scale_ups"],
             "routed": st["router"]["routed"],
             "affinity_hits": st["router"]["affinity_hits"]}
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: sliding-window decode at full width
+# ---------------------------------------------------------------------------
+
+#: smollm-360m with a sliding window: a 32-token prompt, then 32 greedy
+#: decode steps in a 64-key cache, each step's window cut below its
+#: length (and across granule edges as the length grows)
+WINDOW_MODEL, WINDOW_PROMPT, WINDOW_STEPS = 24, 32, 32
+
+
+def serve_windowed(mc, params) -> dict:
+    """smollm-360m at full width with ``sliding_window`` =
+    ``WINDOW_MODEL``: one greedy prompt through ``prefill_fn`` +
+    ``decode_fn`` for ``WINDOW_STEPS`` steps through the kernel, with the
+    launch counters zeroed just before and read just after (every step
+    launches ``decode_attention`` once a layer).  Its twin runs the same
+    prompt with the layers' attention through ``decode_attention_plain``
+    on the card (bf16 scores, the JAX layer's formula).  The logits of
+    step 1 agree within the larger of ``CARD_LOGIT_TOL`` and the plain
+    twin's own movement under one bf16 ulp on the embedding table
+    (phase 5's rule); the greedy tokens are equal, or part only where the
+    twin's top-2 margin is within twice that (a near tie, printed)."""
+    import dataclasses
+    from repro_torch import kernels
+    from repro_torch.models import layers as L
+    cfg = dataclasses.replace(mc, sliding_window=WINDOW_MODEL)
+    prompt = np.random.default_rng(SEED + 21).integers(1, cfg.vocab,
+                                                       WINDOW_PROMPT)
+    batch = family_inputs(cfg, params, prompt, "cuda")
+    if WINDOW_PROMPT + WINDOW_STEPS > ROUTER_MAX_LEN:
+        raise AssertionError("the windowed run outgrows its cache")
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    kern = greedy_run(cfg, params, batch, WINDOW_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    for i, c in enumerate(kern["launches"]):
+        if c["decode_attention"] != cfg.n_layers:
+            raise AssertionError(f"windowed step {i + 1} launched "
+                                 f"decode_attention {c['decode_attention']}"
+                                 f" times, not {cfg.n_layers}")
+    kernel = L._decode_attention_kernel
+    L._decode_attention_kernel = (
+        lambda q, k, v, ln, window: L.decode_attention_plain(q, k, v, ln,
+                                                            window))
+    try:
+        plain = greedy_run(cfg, params, batch, WINDOW_STEPS)
+        emb = params["embed"]["emb"]
+        sign = torch.where(torch.rand(emb.shape, generator=torch.Generator(
+            device="cuda").manual_seed(SEED + 11), device="cuda") < 0.5,
+            -1.0, 1.0)
+        moved = dict(params, embed={"emb": (emb.float() * (
+            1 + sign * 2.0 ** -8)).to(emb.dtype)})
+        ref = greedy_run(cfg, moved, batch, 1, feed=plain["fed"][:1])
+    finally:
+        L._decode_attention_kernel = kernel
+    lk, lp = (r["logits"][1].float() for r in (kern, plain))
+    tol = max(CARD_LOGIT_TOL,
+              float((ref["logits"][1].float() - lp).abs().max()))
+    if not (torch.isfinite(lk).all() and torch.isfinite(lp).all()):
+        raise AssertionError("windowed run: logits are not finite")
+    err = float((lk - lp).abs().max())
+    if not torch.allclose(lk, lp, atol=tol, rtol=tol):
+        raise AssertionError(f"windowed run: step-1 logits of the kernel and "
+                             f"the plain twin differ by {err}, beyond {tol}")
+    picks = [[int(x.argmax(-1)) for x in r["logits"]] for r in (kern, plain)]
+    parted = next((i for i, (a, b) in enumerate(zip(*picks)) if a != b),
+                  None)
+    margin = None
+    if parted is not None:
+        top2 = torch.topk(plain["logits"][parted].float()[0], 2).values
+        margin = float(top2[0] - top2[1])
+        log(f"  windowed run: tokens part at step {parted} (kernel "
+            f"{picks[0][parted]}, plain {picks[1][parted]}); the plain "
+            f"twin's top-2 margin there {margin:.4g}, limit {2 * tol:.4g}")
+        if margin > 2 * tol:
+            raise AssertionError("windowed run: the kernel's greedy token "
+                                 "parts from the plain twin's beyond a tie")
+    steps = len(kern["walls"])
+    return {"counts": counts, "steps": steps, "max_abs_err": err, "tol": tol,
+            "parted": parted, "margin": margin, "wall_s": wall,
+            "picks": len(picks[0]),
+            "median_step_ms": 1e3 * statistics.median(kern["walls"]),
+            "launches_a_step": kern["launches"][-1]["decode_attention"]}
 
 
 def router_engine_config():
@@ -2158,7 +2368,8 @@ PARALLEL_STORE = ROOT / "build" / "phase10_store"
 DRYRUN_OUT = ROOT / "build" / "dryrun_phase10"
 #: the dry-run cells the card's host traces on the fake 256-rank mesh
 DRYRUN_CELLS = (("smollm-360m", "decode_32k"), ("llama3-8b", "train_4k"),
-                ("xlstm-125m", "train_4k"), ("xlstm-125m", "prefill_32k"))
+                ("xlstm-125m", "train_4k"), ("xlstm-125m", "prefill_32k"),
+                ("zamba2-2.7b", "decode_32k"))
 #: the hillclimb cell ``launch.perf`` traces there, one process a variant
 PERF_CELL = "xlstm"
 #: PERF.md's hand counts (PR 17): the weight bytes a B=1 smollm-360m
@@ -2687,6 +2898,13 @@ def main() -> int:
             f"{r['library_ms']}; bound {r['bound_ms']:.6f} ms "
             f"({r['bound_by']}); back-to-back wall a call {r['wall']}; "
             f"max|err| {r['max_abs_err']:.3g}")
+    w = rows[0]
+    log(f"  decode_attention windowed (B=1, {w['window_keys']} of "
+        f"{WINDOW_TIMED_KEYS} keys): device time a call: kernel "
+        f"{w['window_ms']:.5f} ms, plain {w['window_plain_ms']:.5f} ms, "
+        f"sdpa with the mask {w['window_library_ms']:.5f} ms; bound "
+        f"{w['window_bound_ms']:.6f} ms ({w['window_bound_by']}); "
+        f"back-to-back wall a call {w['window_wall_ms']:.5f} ms")
     fl = launch_floor()
     log(f"  launch floor (empty kernel, ctypes): device {fl['ms']:.5f} ms, "
         f"back-to-back wall {fl['wall_ms']:.5f} ms a call")
@@ -2720,6 +2938,20 @@ def main() -> int:
         f"{small_c['logit_scale']:.3g})")
     log_profile(decode_step_profile(mc, params, paged=False),
                 "decode step (B=1, contiguous cache)", mc.n_layers)
+
+    t0 = time.perf_counter()
+    wr = serve_windowed(mc, params)
+    log(f"phase 4b: sliding window {WINDOW_MODEL}, smollm-360m at full "
+        f"width, a {WINDOW_PROMPT}-token prompt and {wr['steps']} greedy "
+        f"decode steps in {time.perf_counter() - t0:.1f} s (with the plain "
+        f"twin): decode_attention {wr['launches_a_step']} launches a step, "
+        f"median step {wr['median_step_ms']:.3f} ms; step-1 logits vs the "
+        f"plain twin max |err| {wr['max_abs_err']:.4g} (limit "
+        f"{wr['tol']:.4g}); greedy tokens "
+        + (f"equal at all {wr['picks']} picks" if wr["parted"] is None else
+           f"equal at the first {wr['parted']} of {wr['picks']} picks, "
+           f"then parted at a near tie (top-2 margin {wr['margin']:.4g})"))
+    log(f"  main-path kernel launches: {wr['counts']}")
 
     # the smollm weights make way for the full-width families, and come
     # back (the same seed) for the calibration row
@@ -2821,8 +3053,9 @@ def main() -> int:
         f"{fam['peak'] / 2 ** 30:.3f} GiB; launches {moe['counts']}")
     for r in rows:
         r["launches"] = sum(c[r["name"]] for c in (
-            res["counts"], rr["counts"], moe["counts"], cal["counts"],
-            train["full"]["counts"], par["counts"], ex["counts"]))
+            res["counts"], rr["counts"], wr["counts"], moe["counts"],
+            cal["counts"], train["full"]["counts"], par["counts"],
+            ex["counts"]))
         r.pop("shape")
         r["wall_ms"] = r.pop("wall")["ms"]
     print(json.dumps({"kernels": rows}), flush=True)

@@ -38,7 +38,8 @@ _IP = ctypes.POINTER(ctypes.c_int)
 #: truncates a 64-bit address to an int
 SIGNATURES = {
     "decode_attention_geometry": [_IP, _IP],
-    "decode_attention_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "decode_attention_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                              _F, _P],
     "paged_decode_attention_bf16": [_P, _P, _P, _P, _P, _P,
                                     _I, _I, _I, _I, _I, _I, _F, _P],
     "pmf_conv_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],

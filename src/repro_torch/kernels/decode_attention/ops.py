@@ -21,8 +21,8 @@ import math
 import torch
 
 from ..build import check, current_stream, library, refuse_grad
-from .ref import (SPLIT_GRANULE, SPLIT_RANKS, decode_attention_ref,
-                  paged_decode_attention_ref)
+from .ref import (SPLIT_GRANULE, SPLIT_RANKS, attended_keys,
+                  decode_attention_ref, paged_decode_attention_ref)
 from ...obs.profiling import profiled
 from ...parallel import op_cost
 
@@ -93,13 +93,14 @@ def _credit(name, q, out, index, hkv: int, hd: int, keys) -> None:
                    + op_cost.tensor_bytes(index))
 
 
-def decode_attention_cuda(q, k_cache, v_cache, lengths):
+def decode_attention_cuda(q, k_cache, v_cache, lengths, window: int = 0):
     """The CUDA kernel.  q (B, H, hd) bf16; k/v_cache (B, S, Hkv, hd) bf16;
     lengths (B,) int32 -> (B, H, hd) bf16.
 
-    Row b attends over its first ``min(lengths[b], S)`` keys; keys past
-    that are never read, and a row of length 0 gets zeros.  Forward only:
-    raises where autograd would record it."""
+    Row b attends over its first ``min(lengths[b], S)`` keys, and with a
+    sliding ``window`` > 0 only over those at or past ``lengths[b] -
+    window``; no other key is read, and a row with no key to attend gets
+    zeros.  Forward only: raises where autograd would record it."""
     refuse_grad("decode_attention_cuda", q, k_cache, v_cache)
     if k_cache.dim() != 4:
         raise ValueError(f"k_cache must be (B, S, Hkv, hd), not "
@@ -113,6 +114,8 @@ def decode_attention_cuda(q, k_cache, v_cache, lengths):
         raise ValueError("k_cache and v_cache differ in shape")
     if lengths.shape != (b,):
         raise ValueError(f"lengths must be ({b},), not {tuple(lengths.shape)}")
+    if window < 0:
+        raise ValueError(f"window must be >= 0, not {window}")
     _check_cuda(("q", q, torch.bfloat16), ("k_cache", k_cache, torch.bfloat16),
                 ("v_cache", v_cache, torch.bfloat16),
                 ("lengths", lengths, torch.int32))
@@ -123,12 +126,12 @@ def decode_attention_cuda(q, k_cache, v_cache, lengths):
     out = torch.empty_like(q)
     err = _library().decode_attention_bf16(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), b, s, hkv, g, hd,
+        lengths.data_ptr(), out.data_ptr(), b, s, hkv, g, hd, int(window),
         1.0 / math.sqrt(hd), current_stream(q.device))
     decode_attention_cuda.launches += 1
     if op_cost.active():
         _credit("decode_attention", q, out, lengths, hkv, hd,
-                lambda: int(lengths.clamp(max=s).sum()))
+                lambda: int(attended_keys(lengths, s, window).sum()))
     check(err, "decode_attention")
     return out
 
@@ -136,16 +139,17 @@ def decode_attention_cuda(q, k_cache, v_cache, lengths):
 decode_attention_cuda.launches = 0
 
 
-def _decode_attention(q, k_cache, v_cache, lengths):
+def _decode_attention(q, k_cache, v_cache, lengths, window):
     if q.is_cuda:
-        return decode_attention_cuda(q, k_cache, v_cache, lengths)
-    return decode_attention_ref(q, k_cache, v_cache, lengths)
+        return decode_attention_cuda(q, k_cache, v_cache, lengths, window)
+    return decode_attention_ref(q, k_cache, v_cache, lengths, window)
 
 
-def decode_attention(q, k_cache, v_cache, lengths):
-    """q (B, H, hd); k/v_cache (B, S, Hkv, hd); lengths (B,) -> (B, H, hd)."""
+def decode_attention(q, k_cache, v_cache, lengths, window: int = 0):
+    """q (B, H, hd); k/v_cache (B, S, Hkv, hd); lengths (B,) -> (B, H, hd);
+    ``window`` > 0 attends only to the last ``window`` keys of a row."""
     return profiled("decode_attention", _decode_attention,
-                    q, k_cache, v_cache, lengths)
+                    q, k_cache, v_cache, lengths, window)
 
 
 def paged_decode_attention_cuda(q, k_pages, v_pages, block_tables, lengths):

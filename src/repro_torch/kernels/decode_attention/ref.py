@@ -9,11 +9,14 @@ import math
 import torch
 
 
-def decode_attention_ref(q, k_cache, v_cache, lengths):
+def decode_attention_ref(q, k_cache, v_cache, lengths, window: int = 0):
     """q (B, H, hd); k/v (B, S, Hkv, hd); lengths (B,) -> (B, H, hd).
 
-    f32 throughout, output cast to q's dtype, as the JAX ref.  A row of
-    length 0 gives NaN here (a softmax over no keys); the kernels give 0.
+    f32 throughout, output cast to q's dtype, as the JAX ref.  A sliding
+    ``window`` > 0 also masks the keys below ``lengths - window``, as the
+    model's ``layers.decode_attention`` does (the JAX ref has no window).
+    A row with no key to attend (length 0) gives NaN here (a softmax over
+    no keys); the kernels give 0.
     """
     b, s, hkv, hd = k_cache.shape
     h = q.shape[1]
@@ -21,7 +24,10 @@ def decode_attention_ref(q, k_cache, v_cache, lengths):
     qg = q.reshape(b, hkv, g, hd).float()
     scale = 1.0 / math.sqrt(hd)
     scores = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.float()) * scale
-    mask = torch.arange(s, device=q.device)[None, :] < lengths[:, None]
+    pos = torch.arange(s, device=q.device)[None, :]
+    mask = pos < lengths[:, None]
+    if window:
+        mask = mask & (pos >= lengths[:, None] - window)
     scores = scores.masked_fill(~mask[:, None, None, :], float("-inf"))
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
@@ -104,20 +110,36 @@ def _split_attend(qg, k, v, n: int, granule: int):
     return acc / torch.clamp(l, min=1e-20)
 
 
-def decode_attention_split_ref(q, k_cache, v_cache, lengths):
+def attended_keys(lengths, s: int, window: int = 0):
+    """Keys each row of a contiguous-cache decode attends to (and the
+    kernel reads): those before the row's end ``min(lengths, s)`` from its
+    first key ``max(0, lengths - window)``, taken from the unclamped
+    length as the reference's mask does (0 without a window); with a
+    window that fits the cache, ``min(lengths, window)``."""
+    end = lengths.clamp(0, s)
+    if window <= 0:
+        return end
+    return (end - (lengths - window).clamp(min=0)).clamp(min=0)
+
+
+def decode_attention_split_ref(q, k_cache, v_cache, lengths,
+                               window: int = 0):
     """The contiguous kernel's algorithm, in f32, one row at a time.
 
     q (B, H, hd); k/v (B, S, Hkv, hd); lengths (B,) -> (B, H, hd) in q's
-    dtype.  Row b attends over its first ``min(lengths[b], S)`` keys, dealt
-    to the ranks in ``SPLIT_GRANULE``-key granules; a row of length 0 gets
-    zeros, as from the kernel.  Each row is computed alone, so its output
-    does not depend on its batch-mates."""
+    dtype.  Row b attends over its ``attended_keys``, the last before its
+    end ``min(lengths[b], S)``, dealt to the ranks in
+    ``SPLIT_GRANULE``-key granules counted from its first key; a row with
+    no key to attend gets zeros, as from the kernel.  Each row is computed
+    alone, so its output does not depend on its batch-mates."""
     b, s, hkv, hd = k_cache.shape
     h = q.shape[1]
     qg = q.reshape(b, hkv, h // hkv, hd)
-    out = [_split_attend(qg[i], k_cache[i], v_cache[i],
-                         max(0, min(int(lengths[i]), s)), SPLIT_GRANULE)
-           for i in range(b)]
+    ends = lengths.clamp(0, s).tolist()
+    keys = attended_keys(lengths, s, window).tolist()
+    out = [_split_attend(qg[i], k_cache[i, ends[i] - keys[i]:],
+                         v_cache[i, ends[i] - keys[i]:], keys[i],
+                         SPLIT_GRANULE) for i in range(b)]
     return torch.stack(out).reshape(b, h, hd).to(q.dtype)
 
 

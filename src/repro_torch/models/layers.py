@@ -299,19 +299,18 @@ def decode_attention(q, k_cache, v_cache, length, window: int = 0):
 
     q: (B, H, hd); k/v_cache: (B, Smax, Hkv, hd); length: (B,) valid lengths.
 
+    ``window`` > 0 attends only to the keys at or past ``length - window``.
+
     On the card this is the port's flash-decode kernel
-    (``kernels.decode_attention``: f32 scores, reads only each row's first
-    ``length`` keys).  On the CPU it is ``decode_attention_plain``, which
-    keeps the JAX layer's cast order (bf16 scores and probs), so the CPU model
-    agrees tightly with the JAX model.
+    (``kernels.decode_attention``: f32 scores, reads only the keys each
+    row attends to, the window's too; a row with none gets zeros, where
+    the formula gives NaN).  On the CPU it is ``decode_attention_plain``,
+    which keeps the JAX layer's cast order (bf16 scores and probs), so the
+    CPU model agrees tightly with the JAX model.
     """
     if q.is_cuda:
-        if window:
-            raise NotImplementedError(
-                "sliding-window decode on the card needs a windowed "
-                "flash-decode kernel, which the port does not have yet")
         return _decode_attention_kernel(q.contiguous(), k_cache, v_cache,
-                                        length.to(torch.int32))
+                                        length.to(torch.int32), window)
     return decode_attention_plain(q, k_cache, v_cache, length, window)
 
 

@@ -91,6 +91,23 @@ def _ssd_scan(state, xh, bh, ch, dt, decay, ck: int):
     return torch.cat(ys, dim=1)[:, :s], state
 
 
+def _ssd_step(state, xh, bh, ch, dt, decay):
+    """One step (S = 1): the selective state update; returns (y (B,1,H,hd)
+    f32, state)."""
+    upd = torch.einsum("bhp,bhn->bhpn",
+                       dt[:, 0][..., None] * xh[:, 0].float(), bh[:, 0])
+    state = state * decay[:, 0][..., None, None] + upd
+    return torch.einsum("bhpn,bhn->bhp", state, ch[:, 0])[:, None], state
+
+
+def _scan(state, xh, bh, ch, dt, decay, ck: int):
+    """The decode step's update or the chunked scan, by S."""
+    if xh.shape[1] == 1:
+        return _ssd_step(state, xh, bh, ch, dt, decay)
+    return op_cost.region("ssd_scan", _ssd_scan, state, xh, bh, ch, dt,
+                          decay, ck)
+
+
 def mamba2_apply(p, x, ssm_cfg, state=None, conv_state=None):
     """x: (B, S, D).  state: (B, H, hd, N) f32 carried across calls
     (decode); conv_state: (B, conv_width - 1, d_inner).
@@ -113,7 +130,7 @@ def mamba2_apply(p, x, ssm_cfg, state=None, conv_state=None):
     new_conv_state = xs_pad[:, -(cw - 1):] if cw > 1 else conv_state
     idx = torch.arange(s, device=x.device)[:, None] \
         + torch.arange(cw, device=x.device)[None, :]
-    windows = xs_pad[:, idx]                                  # (B, S, cw, d_inner)
+    windows = pctx.take_seq(xs_pad, idx)                      # (B, S, cw, d_inner)
     xs = F.silu(torch.einsum("bscd,cd->bsd", windows, p["conv_w"]))
 
     xh = pctx.reshape(xs, (bsz, s, n_heads, head_d))
@@ -125,17 +142,9 @@ def mamba2_apply(p, x, ssm_cfg, state=None, conv_state=None):
     if state is None:
         state = torch.zeros((bsz, n_heads, head_d, n), dtype=torch.float32,
                             device=x.device)
-    state = pctx.shard_bh(state)
-
-    if s == 1:
-        # decode: one selective state update
-        upd = torch.einsum("bhp,bhn->bhpn",
-                           dt[:, 0][..., None] * xh[:, 0].float(), bh[:, 0])
-        state = state * decay[:, 0][..., None, None] + upd
-        y = torch.einsum("bhpn,bhn->bhp", state, ch[:, 0])[:, None]
-    else:
-        y, state = op_cost.region("ssd_scan", _ssd_scan, state, xh, bh, ch,
-                                  dt, decay, ssm_cfg.chunk)
+    # each rank's (batch, head) shards, as GSPMD runs the scan
+    y, state = pctx.per_shard_bh(_scan, state, xh, bh, ch, dt, decay,
+                                 ssm_cfg.chunk)
 
     y = y + p["d_skip"][None, None, :, None] * xh.float()
     y = pctx.reshape(y, (bsz, s, d_inner)).to(x.dtype)

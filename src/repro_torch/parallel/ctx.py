@@ -17,8 +17,10 @@ rules name: ``place_cache``, ``write_rows``, ``write_prefix``,
 ``gather_vocab``, ``embedding``, ``reshape``, ``einsum``, ``matmul``,
 ``per_shard``, which runs attention, independent over batch and heads,
 on each rank's shards, ``per_shard_rows``, which runs the xLSTM scans on
-each rank's rows, and ``logsigmoid``, whose backward DTensor has no rule
-for.  With the context off each is the plain op.
+each rank's rows, ``per_shard_bh``, which runs the Mamba2 scan on each
+rank's (batch, head) shards, ``take_seq``, the causal conv's gather of
+windows, and ``logsigmoid``, whose backward DTensor has no rule for.
+With the context off each is the plain op.
 
 Rules:
   * batch dims shard over DP axes only when divisible (decode with
@@ -218,10 +220,23 @@ def einsum(eq: str, *ops):
         sizes.update(zip(sub, o.shape))
     shape = tuple(sizes[c] for c in out)
     stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
-    local = torch.einsum(eq, *(o.redistribute(mesh, t).to_local()
-                               for o, t in zip(ops, target)))
+    local = torch.einsum(eq, *(o.redistribute(mesh, t).to_local(
+        grad_placements=_local_grads(t, out_pl))
+        for o, t in zip(ops, target)))
     return DTensor.from_local(local, mesh, out_pl, run_check=False,
                               shape=shape, stride=stride)
+
+
+def _local_grads(placements, out_pl) -> list:
+    """What the gradient of a rank's operand (on ``placements``) is in an
+    op whose output lies on ``out_pl``: a shard's gradient is its shard's;
+    a whole operand's is a partial sum where the output is split over the
+    ranks (sharded or partial), and whole where it is whole; a partial
+    sum's is whole (each part has the output's gradient)."""
+    from torch.distributed.tensor import Partial, Replicate
+    return [Replicate() if p.is_partial() else
+            Partial() if p.is_replicate() and not o.is_replicate() else p
+            for p, o in zip(placements, out_pl)]
 
 
 def matmul(x, w):
@@ -256,14 +271,18 @@ def embedding(table, ids):
     ids = ids.redistribute(mesh, [Replicate() if m in vocab else p
                                   for m, p in enumerate(ids.placements)])
     lo = _rank_offset(table.shape[0], mesh, vocab)
-    local, li = table.to_local(), ids.to_local()
+    out_pl = [Partial() if m in vocab else p
+              for m, p in enumerate(ids.placements)]
+    # a rank's rows of the table take the gradient of its own ids: a
+    # partial sum over the mesh dims that shard the ids
+    local = table.to_local(grad_placements=_local_grads(table.placements,
+                                                        out_pl))
+    li = ids.to_local()
     rel = li - lo
     inside = (rel >= 0) & (rel < local.shape[0])
     rows = F.embedding(rel.clamp(0, max(local.shape[0] - 1, 0)), local)
     rows = torch.where(inside[..., None], rows,
                        torch.zeros((), dtype=rows.dtype, device=rows.device))
-    out_pl = [Partial() if m in vocab else p
-              for m, p in enumerate(ids.placements)]
     shape = tuple(ids.shape) + (table.shape[1],)
     stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
     return shard_batch_seq(DTensor.from_local(rows, mesh, out_pl,
@@ -343,6 +362,76 @@ def per_shard_rows(fn, *args, weights=()):
         return DTensor.from_local(o, mesh, rows, run_check=False,
                                   shape=shape, stride=stride)
     return tree_unflatten([placed(o) for o in flat_out], out_spec)
+
+
+def per_shard_bh(fn, state, *seq):
+    """``fn(state, *seq)`` for a recurrence independent over the batch and
+    the heads (the Mamba2 scan and its one-step update): ``state`` (B, H,
+    ...) and the tensors of ``seq`` (B, S, H, ...) in, ``(y (B, S, H,
+    ...), state (B, H, ...))`` out; other arguments pass through.  On
+    DTensors each rank runs ``fn`` on its own (batch, head) shards, so
+    the scan's body is plain tensors with no collective, as GSPMD
+    partitions a ``lax.scan`` over a carry sharded on batch and heads
+    (some DTensor versions refuse the body's einsums at these placements,
+    and cumsum's backward).  The split is the state's placements under
+    ``shard_bh``: each operand is brought to them (a shard of another dim
+    gathered first, an operand replicated on a mesh dim cut to the rank's
+    slice without communication, a plain tensor cut likewise), and the
+    results are placed alike."""
+    if not (_STATE["on"] and any(_is_dtensor(t) for t in (state,) + seq)):
+        return fn(state, *seq)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    state = shard_bh(state)
+    mesh = state.device_mesh
+    split = [p if p.is_shard() and p.dim in (0, 1) else Replicate()
+             for p in state.placements]
+    ranges = [_rank_range(state.shape[d], mesh,
+                          [m for m, p in enumerate(split) if p.is_shard(d)])
+              for d in (0, 1)]
+
+    def at(head: int):
+        return [Shard(head) if p.is_shard(1) else p for p in split]
+
+    def local(t, head: int):
+        if isinstance(t, DTensor):
+            return t.redistribute(mesh, at(head)).to_local()
+        if isinstance(t, torch.Tensor):
+            (b0, nb), (h0, nh) = ranges
+            return t.narrow(0, b0, nb).narrow(head, h0, nh)
+        return t
+    _STATE["on"] = False            # the shards are plain tensors
+    try:
+        y, st = fn(local(state, 1), *(local(t, 2) for t in seq))
+    finally:
+        _STATE["on"] = True
+
+    def placed(o, head: int):
+        shape = list(o.shape)
+        shape[0], shape[head] = state.shape[0], state.shape[1]
+        stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+        return DTensor.from_local(o, mesh, at(head), run_check=False,
+                                  shape=tuple(shape), stride=stride)
+    return placed(y, 2), placed(st, 1)
+
+
+def take_seq(x, idx):
+    """``x[:, idx]`` for ``x`` (B, L, ...) and an index tensor ``idx``
+    (any shape) into dim 1.  On a DTensor whose dim 1 is whole, each rank
+    gathers from its own shard, and the result keeps ``x``'s shards of
+    the other dims, as GSPMD partitions a gather along the dims it does
+    not index (some DTensor versions have no rule for the gather's
+    backward, an accumulating ``index_put``)."""
+    if not (_STATE["on"] and _is_dtensor(x)) or any(
+            p.is_shard(1) for p in x.placements):
+        return x[:, idx]
+    from torch.distributed.tensor import DTensor, Shard
+    extra = idx.dim() - 1
+    pl = [Shard(p.dim + extra) if p.is_shard() and p.dim > 1 else p
+          for p in x.placements]
+    shape = (x.shape[0],) + tuple(idx.shape) + tuple(x.shape[2:])
+    stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+    return DTensor.from_local(x.to_local()[:, idx], x.device_mesh, pl,
+                              run_check=False, shape=shape, stride=stride)
 
 
 class _LogSigmoid(torch.autograd.Function):

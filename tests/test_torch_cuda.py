@@ -14,10 +14,12 @@ that cross its granule and rank boundaries and at one shape for every
 rtol 4e-3: the kernels round their output to bf16); the engine's batched
 greedy tokens must equal its one-at-a-time tokens through the kernels, and
 the one-at-a-time path behind the Router keeps its tokens with the prefix
-cache on or off.  The decode kernel is also held at every registered
-arch's (G, Hkv, hd) and at an enc-dec cross-attention shorter than its
-cache, and every family's reduced model on the card against the same
-weights on the host.  RMSNorm is held at every instantiation of its kernel
+cache on or off.  The contiguous kernel under a sliding window is held to
+the windowed split model at every instantiation and to the layer's
+windowed plain version on ``decode_fn``'s cache.  The decode kernel is
+also held at every registered arch's (G, Hkv, hd) and at an enc-dec
+cross-attention shorter than its cache, and every family's reduced model
+on the card against the same weights on the host.  RMSNorm is held at every instantiation of its kernel
 (the library reports which one a width takes), the PMF convolution up to
 the longest row it takes, and its front door against the chance of success
 it stands for.  The merge-saving MLP trained on the card predicts as the
@@ -189,6 +191,33 @@ def test_decode_attention_kernel_every_shape(cuda, group, hkv, hd):
         got.float(), decode_attention_split_ref(*_f32(q, k, v, ln)),
         atol=1e-4, rtol=4e-3)
     assert torch.equal(got[0], torch.zeros_like(got[0]))
+
+
+#: sliding windows for the sweep: inside a granule, at and across its
+#: edge, across the rank deal, and one longer than the capacity
+SWEEP_WINDOWS = (1, 16, 17, 129, 2048)
+
+
+@pytest.mark.parametrize("group,hkv,hd", KERNEL_SHAPES)
+def test_windowed_decode_attention_every_shape(cuda, group, hkv, hd):
+    """The windowed kernel against the windowed split model at every
+    instantiation: each row's origin moves to its first attended key
+    (``max(0, length - window)``, the 1,200-key row's from its unclamped
+    length); rows with no key left get zeros; a window longer than every
+    row gives the bits of no window."""
+    q, k, v, _ = _contiguous(cuda, len(SWEEP_LENGTHS), 1100, h=group * hkv,
+                             hkv=hkv, hd=hd, seed=group * hd + 1)
+    ln = torch.tensor(SWEEP_LENGTHS, dtype=torch.int32, device=cuda)
+    for window in SWEEP_WINDOWS:
+        got = decode_attention_cuda(q, k, v, ln, window=window)
+        torch.testing.assert_close(
+            got.float(),
+            decode_attention_split_ref(*_f32(q, k, v, ln), window=window),
+            atol=1e-4, rtol=4e-3)
+        assert torch.equal(got[0], torch.zeros_like(got[0]))
+        assert torch.equal(got, decode_attention_cuda(q, k, v, ln,
+                                                      window=window))
+    assert torch.equal(got, decode_attention_cuda(q, k, v, ln))
 
 
 @pytest.mark.parametrize("group,hkv,hd,ps", [
@@ -416,9 +445,21 @@ def test_decode_step_launches_the_kernel_per_layer(cuda):
     T.decode_fn(cfg)(params, cache, torch.ones((2,), dtype=torch.long,
                                                device=cuda))
     assert launch_counts()["decode_attention"] == cfg.n_layers
-    with pytest.raises(NotImplementedError, match="windowed"):
-        L.decode_attention(cache["k"][0], cache["k"][0], cache["v"][0],
-                           cache["len"], window=4)
+    # a sliding window launches the kernel too: on decode_fn's cache it
+    # agrees with the layer's windowed plain version
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q = torch.randn((2, cfg.n_heads, cfg.resolved_head_dim), generator=g,
+                    device=cuda).bfloat16()
+    length = cache["len"] + 1
+    reset_launch_counts()
+    got = L.decode_attention(q, cache["k"][0], cache["v"][0], length,
+                             window=4)
+    assert launch_counts()["decode_attention"] == 1
+    torch.testing.assert_close(
+        got.float(), L.decode_attention_plain(q, cache["k"][0],
+                                              cache["v"][0], length,
+                                              window=4).float(),
+        atol=1e-2, rtol=1e-2)
 
 
 def test_router_one_at_a_time_prefix_cache_keeps_tokens(cuda):

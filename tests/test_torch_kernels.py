@@ -527,15 +527,24 @@ class TestLayerRouting:
         assert launch_counts()["decode_attention"] == 0
 
     def test_cuda_layer_calls_the_kernel(self, monkeypatch):
+        """On the card the layer launches the kernel, with the window
+        where there is one: it never raises and never takes the plain
+        version."""
         calls = []
         monkeypatch.setattr(L, "_decode_attention_kernel",
                             lambda *a: calls.append(a) or "kernel")
+
+        def plain(*a, **k):
+            raise AssertionError("the card took the plain version")
+        monkeypatch.setattr(L, "decode_attention_plain", plain)
         lens = torch.tensor([3, 5], dtype=torch.int64)
         assert L.decode_attention(_FakeCuda(), "k", "v", lens) == "kernel"
         assert len(calls) == 1 and calls[0][3].dtype == torch.int32
-        with pytest.raises(NotImplementedError, match="windowed"):
-            L.decode_attention(_FakeCuda(), "k", "v", lens, window=4)
-        assert len(calls) == 1
+        assert calls[0][4] == 0
+        assert L.decode_attention(_FakeCuda(), "k", "v", lens,
+                                  window=4) == "kernel"
+        assert len(calls) == 2 and calls[1][3].dtype == torch.int32
+        assert calls[1][4] == 4
 
 
 # ---------------------------------------------------------------------------

@@ -16,9 +16,11 @@ full-length gradient, (S / chunk) x S in all.
   a chunk; their number does not grow with the number of chunks.
 * On a fake (4, 2) mesh, DTensor inputs placed as the dry-run places
   them: the chunks keep the inputs' placements, and the cut runs the
-  collectives of the sliced loop and no more.  (DTensor of torch 2.11
-  refuses the scan's body einsums at these placements, cut or sliced,
-  as it refuses the dry-run's zamba2 cells; 2.13 runs them.)
+  collectives of the sliced loop and no more.  Both scans run as the
+  model runs its scan there, through ``ctx.per_shard_bh`` on each rank's
+  (batch, head) shards: DTensor of torch 2.11 refuses the scan's body
+  einsums on DTensors at these placements, cut or sliced (2.13 runs
+  them).
 
 No JAX here: the parity of both functions with JAX is held by
 ``tests/test_torch_train_model.py`` and ``tests/test_torch_family_modules.py``.
@@ -277,7 +279,7 @@ def _counted_on_mesh(mesh, case, fn, s):
         args = [_placed(mesh, t, (dp, h)) for t, h in zip(leaves, heads)]
 
         def run():
-            y, st = fn(*args, SCAN_CK)
+            y, st = pctx.per_shard_bh(fn, *args, SCAN_CK)
             return y.sum() + st.sum()
     else:
         params, _, labels = _loss_inputs(s)

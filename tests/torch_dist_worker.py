@@ -3,7 +3,13 @@ port's int8 compressed all-reduce and GPipe pipeline over a 4-rank group,
 the xLSTM blocks' scans on each rank's batch rows (``ctx.per_shard_rows``)
 under a (4, 2) mesh, and a checkpoint saved under that mesh and restored
 under a (2, 2) one.  ``torch.multiprocessing.spawn`` runs ``run`` once
-per rank; ranks 0-3 write what the test compares to ``out_dir``."""
+per rank; ranks 0-3 write what the test compares to ``out_dir``.
+
+``run_ssm`` is one rank of ``tests/test_torch_ssm_mesh.py``'s world under
+a (4, 2) mesh: the Mamba2 block's scan and its one-step update on each
+rank's (batch, head) shards (``ctx.per_shard_bh``), and the gradients of
+a vocab-parallel embedding table and a whole weight (``ctx.embedding``,
+``ctx.matmul``).  No JAX here."""
 
 import os
 
@@ -75,6 +81,128 @@ def xlstm_blocks(x, g, params, place=lambda t: t):
         out[f"{name}_dx"] = xx.grad
         out.update({f"{name}_d{k}": v.grad for k, v in p.items()})
     return out
+
+
+# the Mamba2 block: batch, length (a scan over MS - 1 steps in chunks of
+# 4, the last one padded, then one decode step), width
+MB, MS, MD = 8, 10, 16
+
+
+def ssm_cfg():
+    from repro_torch.configs.base import SSMConfig
+    return SSMConfig(state_dim=8, expand=2, conv_width=4, n_ssm_heads=4,
+                     chunk=4)
+
+
+def mamba2_inputs():
+    """x, and the cotangents of the scan's output, the step's output and
+    the final state."""
+    rng = np.random.default_rng(4)
+    return (rng.normal(size=(MB, MS, MD)).astype(np.float32),
+            rng.normal(size=(MB, MS - 1, MD)).astype(np.float32),
+            rng.normal(size=(MB, 1, MD)).astype(np.float32),
+            rng.normal(size=(MB, 4, 8, 8)).astype(np.float32))
+
+
+def mamba2_params():
+    from repro_torch.models import layers, ssm
+    init = layers.ParamInit(torch.Generator().manual_seed(1), "cpu")
+    return ssm.mamba2_init(init, MD, ssm_cfg())
+
+
+def mamba2_block(x, gy, g1, gs, params, place=lambda t: t):
+    """The Mamba2 block over ``x``'s first ``MS - 1`` steps (the chunked
+    scan), then one decode step (S = 1) from the state and conv state it
+    leaves, each weight in f32 and placed by ``place``: both outputs, the
+    final state, and the gradients of their products with the cotangents
+    with respect to ``x`` and each weight, by name."""
+    from repro_torch.models import ssm
+    cfg = ssm_cfg()
+    p = {k: ({"w": place(v["w"].float()).requires_grad_()}
+             if isinstance(v, dict) else place(v.float()).requires_grad_())
+         for k, v in params.items()}
+    xx = place(x.clone()).requires_grad_()
+    y, st, conv = ssm.mamba2_apply(p, xx[:, :-1], cfg)
+    y1, st1, _ = ssm.mamba2_apply(p, xx[:, -1:], cfg, state=st,
+                                  conv_state=conv)
+    ((y * place(gy)).sum() + (y1 * place(g1)).sum()
+     + (st1 * place(gs)).sum()).backward()
+    out = {"y": y, "y1": y1, "state": st, "state1": st1, "dx": xx.grad}
+    out.update({f"d{k}": (v["w"] if isinstance(v, dict) else v).grad
+                for k, v in p.items()})
+    return out
+
+
+EV, ED = 16, 4                    # the embedding's vocabulary and width
+
+
+def lookup_inputs():
+    """Ids (MB, 6), the table (EV, ED), a weight (ED, 3) and the
+    cotangent of the (MB, 6, 3) output."""
+    rng = np.random.default_rng(6)
+    return (rng.integers(0, EV, size=(MB, 6)),
+            rng.normal(size=(EV, ED)).astype(np.float32),
+            rng.normal(size=(ED, 3)).astype(np.float32),
+            rng.normal(size=(MB, 6, 3)).astype(np.float32))
+
+
+def lookup(ids, table, w, g, place_ids=lambda t: t, place_table=lambda t: t,
+           place_w=lambda t: t):
+    """``ctx.matmul(ctx.embedding(table, ids), w)`` and the gradients of
+    its product with ``g`` with respect to the table and the weight."""
+    from repro_torch.parallel import ctx as pctx
+    tb = place_table(table).requires_grad_()
+    ww = place_w(w).requires_grad_()
+    y = pctx.matmul(pctx.embedding(tb, place_ids(ids)), ww)
+    (y * place_ids(g)).sum().backward()
+    return {"lookup_y": y, "dtable": tb.grad, "dw": ww.grad}
+
+
+def run_ssm(rank: int, world: int, store_dir: str, out_dir: str) -> None:
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                          distribute_tensor)
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.parallel import ctx as pctx
+
+    store = dist.FileStore(os.path.join(store_dir, "store"), world)
+    dist.init_process_group("gloo", store=store, rank=rank, world_size=world)
+    try:
+        mesh = init_device_mesh("cpu", (4, 2),
+                                mesh_dim_names=("data", "model"))
+        # activations batch-sharded over 'data' (the dry-run's), the
+        # weights replicated; a plain tensor the block makes counts as
+        # replicated, as in the dry-run
+        rows = (Shard(0), Replicate())
+        pctx.configure(mesh)
+        try:
+            with implicit_replication():
+                got = mamba2_block(
+                    *(torch.from_numpy(a) for a in mamba2_inputs()),
+                    mamba2_params(), lambda t: (
+                        t if isinstance(t, DTensor) else distribute_tensor(
+                            t, mesh, rows if t.shape[0] == MB
+                            else (Replicate(), Replicate()))))
+            # the ids batch-sharded over 'data', the table's rows over
+            # 'model' (vocab-parallel), the weight whole
+            ids, table, w, g = (torch.from_numpy(a) for a in lookup_inputs())
+            got.update(lookup(
+                ids, table, w, g,
+                lambda t: distribute_tensor(t, mesh, rows),
+                lambda t: distribute_tensor(t, mesh, (Replicate(), Shard(0))),
+                lambda t: distribute_tensor(t, mesh,
+                                            (Replicate(), Replicate()))))
+        finally:
+            pctx.disable()
+        out = {}
+        for k, v in got.items():
+            out[k] = v.detach().full_tensor().numpy()
+            out[f"{k}_placements"] = np.array([str(p) for p in v.placements])
+        out["state_local"] = got["state"].detach().to_local().numpy()
+        np.savez(os.path.join(out_dir, f"ssm_rank{rank}.npz"), **out)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
 
 
 def _tensors(tree):
