@@ -95,6 +95,21 @@ Phases (any failure exits non-zero and prints no result line):
    ``decode_attention_plain`` on the card: step-1 logits within phase 5's
    bf16 tolerance, greedy tokens equal (where they part, the twin's
    top-2 margin is printed and must be within twice that tolerance).
+   4c. The success-chance signal of the simulator's and the Router's
+   scalers on the caller's device (stub substrates, no model): (a)
+   ``tests/test_autoscale.py``'s cross-substrate trace with success-chance
+   elasticity, the port's ``Simulator`` and stub engine on the card
+   (``device="cuda"``) and on the host (``device="cpu"``): simulator ==
+   stub engine on each, card == host, and each card run launches
+   ``pmf_conv`` once for each decision its host run scored (counted on the
+   host), the host runs none; (b) that file's stub-plane ``Router`` under
+   sustained overload, its planes on the card: it adds and retires a plane
+   and launches the kernel once for each plane the host run scored; (c)
+   the same Router on ``"cpu"`` launches nothing and takes (b)'s routing
+   decisions and plane accounting; (d) the launcher as a subprocess with
+   ``--autoscale success-chance --extra-planes 1`` on the card exits 0
+   and reports its plane decisions.  The counters are zeroed just before
+   and read just after each card run of (a) and (b).
 5. Every model family (the smollm weights freed first, and re-made from
    the same seed for phase 7):
    * deepseek-moe-16b at full width (28 layers, 64 experts top-6 plus 2
@@ -206,8 +221,8 @@ Phases (any failure exits non-zero and prints no result line):
    ``rmsnorm`` and 25 ``rmsnorm_bwd`` launches a step.
 9. Print tokens/s, decode-step walls, per-kernel launches and times, the
    kernel JSON line (with each kernel's back-to-back wall a call,
-   ``wall_ms``; launches summed over phases 3-8, 4b, 10 and 11), and last
-   the device JSON line.
+   ``wall_ms``; launches summed over phases 3-8, 4b, 4c, 10 and 11), and
+   last the device JSON line.
 """
 
 from __future__ import annotations
@@ -1327,6 +1342,212 @@ def serve_windowed(mc, params) -> dict:
             "picks": len(picks[0]),
             "median_step_ms": 1e3 * statistics.median(kern["walls"]),
             "launches_a_step": kern["launches"][-1]["decode_attention"]}
+
+
+# ---------------------------------------------------------------------------
+# phase 4c: the success-chance signal of the simulator's and the Router's
+# scalers on the caller's device
+# ---------------------------------------------------------------------------
+
+#: the launcher's plane-scaling run (phase 4c (d)): one base plane, one
+#: plane the scaler may add, 40 requests at 4 a tick
+SCALER_LAUNCHER_ARGV = ("--arch", "smollm-360m", "--requests", "40",
+                        "--units", "1", "--planes", "1", "--autoscale",
+                        "success-chance", "--extra-planes", "1", "--rate",
+                        "4")
+
+
+def scaler_pet():
+    from repro_torch.core.tasks import PETMatrix
+    return PETMatrix.generate(["generate"], ["m0"],
+                              np.random.default_rng(3), mean_range=(8, 16))
+
+
+def scaler_trace():
+    """``tests/test_autoscale.py``'s cross-substrate trace: 40 requests,
+    mean gap 1 tick, deadlines 60 ticks out."""
+    from repro_torch.serving.engine import Request
+    rng = np.random.default_rng(1)
+    out, t = [], 0.0
+    for _ in range(40):
+        out.append((t, Request(
+            prompt=tuple(rng.integers(1, 1000, size=8).tolist()),
+            op="generate", n_new=int(rng.integers(1, 4)), deadline=t + 60.0)))
+        t += float(rng.exponential(1.0))
+    return out
+
+
+class HostSignalCalls:
+    """Counts the batched success-chance calls of a host run (one for each
+    scored decision of each scored plane), the launches the same run on the
+    card must make."""
+
+    def __init__(self):
+        from repro_torch.serving.autoscale import signals
+        self.signals, self.inner, self.n = signals, signals._kernel_success, 0
+
+    def __enter__(self):
+        def counted(*a, **kw):
+            self.n += 1
+            return self.inner(*a, **kw)
+        self.signals._kernel_success = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.signals._kernel_success = self.inner
+
+
+def cross_substrate(device) -> dict:
+    """The stub engine and the simulator on ``scaler_trace`` with
+    success-chance elasticity on ``device``: both traces, the simulator's
+    counts, and the ``pmf_conv`` launches of each run (zeroed just before
+    and read just after it)."""
+    from repro_torch import kernels
+    from repro_torch.core.fleet import FleetSpec
+    from repro_torch.core.simulation import PETOracle, SimConfig, Simulator
+    from repro_torch.serving.autoscale import ElasticityConfig
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    el = ElasticityConfig(policy="success-chance", max_extra=2,
+                          scale_up_queue=6, scale_down_queue=1,
+                          low_chance=0.6)
+    trace = scaler_trace()
+    sim = Simulator([r.to_task(t, i) for i, (t, r) in enumerate(trace)],
+                    FleetSpec.homogeneous(1), PETOracle(scaler_pet(), seed=11),
+                    SimConfig(heuristic="EDF", merging="none", elasticity=el),
+                    device=device)
+    eng = ServingEngine(None, None, EngineConfig(
+        n_units=1, heuristic="EDF", merging="none", result_cache=False,
+        prefix_cache=False, elasticity=el),
+        stub_oracle=PETOracle(scaler_pet(), seed=11), device=device)
+    sim.cp.trace, eng.cp.trace = [], []
+    out = {}
+    for name, run in (("sim", sim.run), ("engine", lambda: eng.run(trace))):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        with HostSignalCalls() as calls:
+            t0 = time.perf_counter()
+            out[name] = run()
+            torch.cuda.synchronize()
+            out[f"{name}_wall_s"] = time.perf_counter() - t0
+        out[f"{name}_counts"] = kernels.launch_counts()
+        out[f"{name}_scored"] = calls.n
+    st = out["sim"]
+    out.update(sim_trace=sim.cp.trace, engine_trace=eng.cp.trace,
+               scale=(st.scale_ups, st.scale_downs, st.on_time, st.missed,
+                      st.dropped, st.machine_seconds),
+               decisions=st.scale_decisions,
+               scaler_device=str(sim.scaler.device))
+    return out
+
+
+def plane_router(device) -> dict:
+    """``tests/test_autoscale.py``'s sustained overload: a stub-plane
+    ``Router`` (1 base plane, up to 3 more, success-chance) with its planes
+    on ``device``, 80 requests; the ``pmf_conv`` launches of the run
+    (zeroed just before, read just after)."""
+    from repro_torch import kernels
+    from repro_torch.core.simulation import PETOracle
+    from repro_torch.core.tasks import PETMatrix
+    from repro_torch.serving.autoscale import ElasticityConfig
+    from repro_torch.serving.cluster import (Router,
+                                             make_engine_plane_factory,
+                                             make_engine_planes)
+    from repro_torch.serving.engine import EngineConfig, Request
+    ecfg = EngineConfig(n_units=1, elasticity=None, result_cache=False,
+                        prefix_cache=False, heuristic="EDF", merging="none")
+    pet = PETMatrix.generate(["generate"], ["m0"], np.random.default_rng(3),
+                             mean_range=(10, 20))
+    router = Router(
+        make_engine_planes(None, None, ecfg, 1,
+                           stub_oracles=[PETOracle(pet, seed=11)],
+                           device=device),
+        policy="least-loaded",
+        autoscale=ElasticityConfig(policy="success-chance", max_extra=3,
+                                   cooldown=30.0, low_chance=0.5),
+        plane_factory=make_engine_plane_factory(
+            None, None, ecfg, device=device,
+            stub_oracle_fn=lambda pid: PETOracle(pet, seed=11 + pid)))
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with HostSignalCalls() as calls:
+        t0 = time.perf_counter()
+        t, rng = 0.0, np.random.default_rng(9)
+        for i in range(80):
+            router.submit(Request(prompt=(i, 2, 3), op="generate", n_new=2,
+                                  deadline=t + 80.0), t)
+            t += float(rng.exponential(4.0))
+        stats = router.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return {"counts": kernels.launch_counts(), "scored": calls.n,
+            "wall_s": wall, "decisions": router.decisions,
+            "auto": stats["router"]["autoscale"],
+            "scaler_device": str(router.plane_scaler.device),
+            "completed": stats["completed"], "dropped": stats["dropped"]}
+
+
+def scaler_phase() -> dict:
+    """Phase 4c: (a) the cross-substrate trace on the card and on the host
+    (simulator == stub engine on each, card == host, every scored decision
+    one ``pmf_conv`` launch on the card and none on the host); (b) the
+    stub-plane Router on the card adds and retires planes, launching the
+    kernel once for each scored plane; (c) the same Router on ``"cpu"``
+    launches nothing and routes as (b); (d) the launcher with
+    ``--extra-planes`` on the card."""
+    card, host = cross_substrate("cuda"), cross_substrate("cpu")
+    for side, run in (("card", card), ("host", host)):
+        if run["sim_trace"] != run["engine_trace"]:
+            raise AssertionError(f"phase 4c: the simulator's trace on the "
+                                 f"{side} differs from the stub engine's")
+    if card["sim_trace"] != host["sim_trace"] or \
+            card["scale"] != host["scale"]:
+        raise AssertionError(f"phase 4c: card {card['scale']} != host "
+                             f"{host['scale']}")
+    for name in ("sim", "engine"):
+        got = card[f"{name}_counts"]["pmf_conv"]
+        if got != host[f"{name}_scored"] or got == 0:
+            raise AssertionError(
+                f"phase 4c: the {name} launched pmf_conv {got} times on the "
+                f"card, the host run scored {host[name + '_scored']} "
+                f"decisions")
+        if host[f"{name}_counts"]["pmf_conv"] != 0:
+            raise AssertionError(f"phase 4c: the {name} on the host "
+                                 f"launched pmf_conv")
+    pc, ph = plane_router("cuda"), plane_router("cpu")
+    if not (pc["auto"]["plane_scale_ups"] > 0
+            and pc["auto"]["plane_scale_downs"] > 0):
+        raise AssertionError(f"phase 4c: the Router on the card did not add "
+                             f"and retire a plane: {pc['auto']}")
+    if pc["counts"]["pmf_conv"] != ph["scored"] or ph["scored"] == 0:
+        raise AssertionError(
+            f"phase 4c: the Router launched pmf_conv "
+            f"{pc['counts']['pmf_conv']} times, the host run scored "
+            f"{ph['scored']} planes")
+    if ph["counts"]["pmf_conv"] != 0:
+        raise AssertionError("phase 4c: the Router on 'cpu' launched pmf_conv")
+    if pc["decisions"] != ph["decisions"] or pc["auto"] != ph["auto"]:
+        raise AssertionError("phase 4c: the Router's decisions on the card "
+                             "differ from the host's")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                          *SCALER_LAUNCHER_ARGV], capture_output=True,
+                         text=True, env=env, cwd=ROOT, timeout=600)
+    lwall = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"phase 4c: the launcher exited "
+                             f"{res.returncode}:\n{res.stderr[-3000:]}")
+    launcher = json.loads(res.stdout)
+    lauto = launcher["router"]["autoscale"]
+    if not lauto["scale_decisions"] > 0:
+        raise AssertionError(f"phase 4c: the launcher reports no plane "
+                             f"decisions: {lauto}")
+    counts = {k: card["sim_counts"][k] + card["engine_counts"][k]
+              + pc["counts"][k] for k in pc["counts"]}
+    return {"card": card, "host": host, "router": pc, "router_host": ph,
+            "launcher": lauto, "launcher_wall_s": lwall,
+            "launcher_completed": launcher["completed"],
+            "launcher_dropped": launcher["dropped"], "counts": counts}
 
 
 def router_engine_config():
@@ -2953,6 +3174,40 @@ def main() -> int:
            f"then parted at a near tie (top-2 margin {wr['margin']:.4g})"))
     log(f"  main-path kernel launches: {wr['counts']}")
 
+    t0 = time.perf_counter()
+    sc = scaler_phase()
+    card, host, pc = sc["card"], sc["host"], sc["router"]
+    log(f"phase 4c: the scalers' success-chance signal on the caller's "
+        f"device, in {time.perf_counter() - t0:.1f} s ({smi})")
+    log(f"  (a) cross-substrate trace, success-chance: simulator == stub "
+        f"engine on the card and on the host, card == host; (scale-ups, "
+        f"scale-downs, on time, missed, dropped, machine-seconds) "
+        f"{card['scale']}, {card['decisions']} decisions; pmf_conv "
+        f"launches on the card: simulator {card['sim_counts']['pmf_conv']},"
+        f" stub engine {card['engine_counts']['pmf_conv']} (= the host "
+        f"runs' scored decisions {host['sim_scored']}, "
+        f"{host['engine_scored']}; 0 launches on the host); simulator wall "
+        f"card {card['sim_wall_s']:.3f} s, host {host['sim_wall_s']:.3f} s"
+        f"; scaler device {card['scaler_device']} / "
+        f"{host['scaler_device']}")
+    log(f"  (b) stub-plane Router on the card: {pc['auto']}; pmf_conv "
+        f"launches {pc['counts']['pmf_conv']} (= scored planes on the host "
+        f"{sc['router_host']['scored']}); completed {pc['completed']}, "
+        f"dropped {pc['dropped']}; wall {pc['wall_s']:.3f} s (host "
+        f"{sc['router_host']['wall_s']:.3f} s); plane scaler device "
+        f"{pc['scaler_device']}")
+    log(f"  (c) the same Router on 'cpu': pmf_conv launches "
+        f"{sc['router_host']['counts']['pmf_conv']}, its "
+        f"{len(pc['decisions'])} routing decisions and plane accounting "
+        f"equal the card's")
+    log(f"  (d) python -m repro_torch.launch.serve "
+        f"{' '.join(SCALER_LAUNCHER_ARGV)} exited 0 in "
+        f"{sc['launcher_wall_s']:.1f} s: completed "
+        f"{sc['launcher_completed']}, dropped {sc['launcher_dropped']}, "
+        f"router.autoscale {sc['launcher']}")
+    log(f"  main-path kernel launches (a) and (b) on the card: "
+        f"{sc['counts']}")
+
     # the smollm weights make way for the full-width families, and come
     # back (the same seed) for the calibration row
     del params
@@ -3053,7 +3308,8 @@ def main() -> int:
         f"{fam['peak'] / 2 ** 30:.3f} GiB; launches {moe['counts']}")
     for r in rows:
         r["launches"] = sum(c[r["name"]] for c in (
-            res["counts"], rr["counts"], wr["counts"], moe["counts"],
+            res["counts"], rr["counts"], wr["counts"], sc["counts"],
+            moe["counts"],
             cal["counts"], train["full"]["counts"], par["counts"],
             ex["counts"]))
         r.pop("shape")

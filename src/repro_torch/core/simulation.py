@@ -19,6 +19,7 @@ from dataclasses import dataclass, field
 from typing import TYPE_CHECKING
 
 import numpy as np
+import torch
 
 from .controlplane import ControlConfig, ControlPlane, Substrate
 from .fleet import FleetSpec, kv_block_budget
@@ -233,9 +234,18 @@ class SimStats:
 # ---------------------------------------------------------------------------
 
 class Simulator(Substrate):
+    """The oracle-backed substrate.
+
+    ``device`` is where the elasticity scaler's success-chance signal (one
+    batched ``pmf_conv`` launch a decision) runs, as on ``ServingEngine``:
+    None means CUDA at the first scored decision (raising when no card is
+    present); pass ``"cpu"`` to run the kernel's plain version.  A run
+    without a success-chance or cost-aware scaler touches no device."""
+
     def __init__(self, tasks: list[Task], machines, oracle,
-                 cfg: SimConfig | None = None):
+                 cfg: SimConfig | None = None, device=None):
         self.cfg = cfg or SimConfig()
+        self.device = None if device is None else torch.device(device)
         self.tasks = sorted(tasks, key=lambda t: t.arrival)
         # ``machines`` may be a FleetSpec (DESIGN.md §2.8): the simulator
         # then builds the exact machines a serving engine on the same spec
@@ -259,6 +269,7 @@ class Simulator(Substrate):
             self.scaler = PoolScaler(self.cfg.elasticity,
                                      _SimMachinePool(self),
                                      len(self.machines))
+            self.scaler.device = self.device
         self.kvcache = None
         self.kvcaches: dict[int, object] = {}   # mid -> per-machine cache
         self._retired_evictions = 0             # from scaler-retired caches

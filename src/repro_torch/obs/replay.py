@@ -121,11 +121,14 @@ def sim_config_from(record: dict, **overrides):
 
 # -- replay ------------------------------------------------------------------
 
-def replay_record(record: dict, oracle=None, telemetry=None, **cfg_overrides):
+def replay_record(record: dict, oracle=None, telemetry=None, device=None,
+                  **cfg_overrides):
     """Re-drive the recorded arrivals through the simulator.
 
     ``oracle`` defaults to a freshly fitted one (``obs.fit.fit_oracle``);
     pass the recording's own stub oracle for the control experiment.
+    ``device`` is the simulator's (``Simulator``): where an ``elasticity``
+    override's success-chance signal runs.
     Returns ``(sim, telemetry)`` after the run completes.
     """
     from ..core.simulation import Simulator
@@ -139,7 +142,7 @@ def replay_record(record: dict, oracle=None, telemetry=None, **cfg_overrides):
         raise ValueError("flight record carries no machine table; "
                          "was FlightRecorder.note_machines() called?")
     sim = Simulator(rebuild_tasks(record), machines, oracle,
-                    sim_config_from(record, **cfg_overrides))
+                    sim_config_from(record, **cfg_overrides), device=device)
     sim.attach_telemetry(tel)
     sim.run()
     return sim, tel

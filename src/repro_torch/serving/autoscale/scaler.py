@@ -63,7 +63,8 @@ class PoolScaler:
         #: ``attach_slo``); surfaced to policies as ``sig.slo_burn()``
         self.slo_fn = None
         #: torch device of the batched ``pmf_conv`` success-chance launch;
-        #: set by the owning engine (None resolves to CUDA)
+        #: set by the owner (engine, simulator or Router) to its own device
+        #: (None resolves to CUDA)
         self.device = None
         #: the base pool's summed cost rate, captured before any scaling:
         #: spend above it is what the cost budgets gate

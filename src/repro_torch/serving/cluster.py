@@ -385,6 +385,9 @@ class Router:
                                  "plane_factory(pid) -> substrate | Plane")
             self.plane_scaler = PoolScaler(
                 autoscale, _PlanePool(self, plane_factory), len(self.planes))
+            # each plane is scored on its own device (``_plane_signals``);
+            # the scaler reports the base plane's
+            self.plane_scaler.device = self.planes[0].sub.device
             if self.tel.enabled:
                 self.plane_scaler.tel = self.tel
                 self.plane_scaler.scope = "planes"
@@ -467,8 +470,9 @@ class Router:
     def _plane_signals(self, now: float) -> ScaleSignals:
         """Cross-plane aggregate for the plane scaler: total queued work,
         the concatenated per-plane success-chance arrays (every plane scored
-        with its own machines, oracle and — when attached — pruner), and
-        the machine-queue-weighted mean of per-plane Eq. 4.3 OSLs."""
+        with its own machines, oracle and — when attached — pruner, on its
+        substrate's device), and the machine-queue-weighted mean of
+        per-plane Eq. 4.3 OSLs."""
         cfg = self.plane_scaler.cfg
 
         def chances():
@@ -476,7 +480,8 @@ class Router:
                                   p.now, pruner=p.cp.pruner,
                                   signal_tasks=cfg.signal_tasks,
                                   grid=cfg.signal_grid,
-                                  use_kernel=cfg.use_kernel)
+                                  use_kernel=cfg.use_kernel,
+                                  device=p.sub.device)
                     for p in self.planes]
             arrs = [a for a in arrs if a.size]
             return np.concatenate(arrs) if arrs else np.zeros(0)

@@ -67,6 +67,20 @@ def test_serve_cli_autoscale():
     assert '"warmup_ticks"' in out
 
 
+def test_serve_cli_extra_planes():
+    """--extra-planes with a success-chance scaler: the Router scores each
+    plane on the planes' device, so ``--device cpu`` serves on the host
+    and every plane decision rides in the summary."""
+    stats = json.loads(_serve(["--requests", "40", "--units", "1",
+                               "--planes", "1", "--autoscale",
+                               "success-chance", "--extra-planes", "2",
+                               "--rate", "4"]))
+    auto = stats["router"]["autoscale"]
+    assert auto["policy"] == "success-chance"
+    assert "plane_scale_ups" in auto and auto["scale_decisions"] > 0
+    assert stats["completed"] + stats["dropped"] == 40
+
+
 def test_serve_cli_fleet():
     out = _serve(["--requests", "8", "--rate", "0.5",
                   "--fleet", "tpu:1:1.0:1.0,cpu:1:0.5:0.25",

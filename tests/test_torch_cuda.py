@@ -22,7 +22,9 @@ cross-attention shorter than its cache, and every family's reduced model
 on the card against the same weights on the host.  RMSNorm is held at every instantiation of its kernel
 (the library reports which one a width takes), the PMF convolution up to
 the longest row it takes, and its front door against the chance of success
-it stands for.  The merge-saving MLP trained on the card predicts as the
+it stands for; the success-chance signal of a simulator and of a
+Router's plane scaler launches it on the card when no device is given, and
+takes the decisions of the same runs on the host.  The merge-saving MLP trained on the card predicts as the
 same training on the host does (``MLP_CARD_ATOL``).  The RMSNorm backward
 kernel is held to its plain version at every instantiation, gives the same
 bits in two calls, and is what autograd records on the card; a reduced
@@ -52,8 +54,14 @@ from repro_torch.kernels.rmsnorm.ops import (MAX_D, check_width, rmsnorm,
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref, rmsnorm_ref
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.core.fleet import FleetSpec
+from repro_torch.core.simulation import PETOracle, SimConfig, Simulator
+from repro_torch.core.tasks import PETMatrix
+from repro_torch.serving.autoscale import ElasticityConfig
+from repro_torch.serving.autoscale import signals as autoscale_signals
 from repro_torch.serving.batching import StepBatchingConfig
-from repro_torch.serving.cluster import Router, make_engine_planes
+from repro_torch.serving.cluster import (Router, make_engine_plane_factory,
+                                         make_engine_planes)
 from repro_torch.serving.engine import EngineConfig, Request, ServingEngine
 
 pytestmark = pytest.mark.cuda
@@ -672,6 +680,115 @@ def test_batched_success_on_the_card(cuda):
     want = [chance_of_success(e, c, dl, droppable_prev=True)
             for e, c, dl in zip(pets, pcts, dls)]
     np.testing.assert_allclose(got, want, atol=1e-5)
+
+
+def _scaler_pet():
+    return PETMatrix.generate(["generate"], ["m0"],
+                              np.random.default_rng(3), mean_range=(8, 16))
+
+
+def _scaler_trace():
+    """``tests/test_autoscale.py``'s cross-substrate trace."""
+    rng = np.random.default_rng(1)
+    out, t = [], 0.0
+    for _ in range(40):
+        out.append((t, Request(
+            prompt=tuple(rng.integers(1, 1000, size=8).tolist()),
+            op="generate", n_new=int(rng.integers(1, 4)), deadline=t + 60.0)))
+        t += float(rng.exponential(1.0))
+    return out
+
+
+def _counting_host_signal(monkeypatch):
+    """Count the batched success-chance calls a host run makes: one for
+    each decision that scored at least one queued task."""
+    calls = {"n": 0}
+    inner = autoscale_signals._kernel_success
+
+    def counted(*a, **kw):
+        calls["n"] += 1
+        return inner(*a, **kw)
+    monkeypatch.setattr(autoscale_signals, "_kernel_success", counted)
+    return calls
+
+
+def test_simulator_signal_on_the_card(cuda, monkeypatch):
+    """A success-chance ``Simulator`` with no device launches ``pmf_conv``
+    on the card once for each decision that scores a queued task, and
+    takes the decisions of its stub engine and of the same run with
+    ``device="cpu"``, which launches nothing."""
+    el = ElasticityConfig(policy="success-chance", max_extra=2,
+                          scale_up_queue=6, scale_down_queue=1,
+                          low_chance=0.6)
+    runs = {}
+    for device in (None, "cpu"):
+        trace = _scaler_trace()
+        sim = Simulator([r.to_task(t, i) for i, (t, r) in enumerate(trace)],
+                        FleetSpec.homogeneous(1),
+                        PETOracle(_scaler_pet(), seed=11),
+                        SimConfig(heuristic="EDF", merging="none",
+                                  elasticity=el), device=device)
+        eng = ServingEngine(None, None, EngineConfig(
+            n_units=1, heuristic="EDF", merging="none", result_cache=False,
+            prefix_cache=False, elasticity=el),
+            stub_oracle=PETOracle(_scaler_pet(), seed=11), device=device)
+        sim.cp.trace, eng.cp.trace = [], []
+        calls = (_counting_host_signal(monkeypatch) if device == "cpu"
+                 else None)
+        reset_launch_counts()
+        st = sim.run()
+        launches = launch_counts()["pmf_conv"]
+        scored = calls["n"] if calls is not None else None
+        eng.run(trace)
+        assert sim.cp.trace == eng.cp.trace
+        runs[device] = (sim.cp.trace, st.scale_ups, st.scale_downs,
+                        launches, scored)
+    card, host = runs[None], runs["cpu"]
+    assert card[:3] == host[:3] and card[1] > 0
+    assert host[3] == 0
+    assert card[3] == host[4] > 0
+
+
+def _stub_plane_router(device):
+    ecfg = EngineConfig(n_units=1, elasticity=None, result_cache=False,
+                        prefix_cache=False, heuristic="EDF", merging="none")
+    pet = PETMatrix.generate(["generate"], ["m0"], np.random.default_rng(3),
+                             mean_range=(10, 20))
+    planes = make_engine_planes(None, None, ecfg, 1,
+                                stub_oracles=[PETOracle(pet, seed=11)],
+                                device=device)
+    factory = make_engine_plane_factory(
+        None, None, ecfg, device=device,
+        stub_oracle_fn=lambda pid: PETOracle(pet, seed=11 + pid))
+    router = Router(planes, policy="least-loaded",
+                    autoscale=ElasticityConfig(policy="success-chance",
+                                               max_extra=3, cooldown=30.0,
+                                               low_chance=0.5),
+                    plane_factory=factory)
+    t, rng = 0.0, np.random.default_rng(9)
+    for i in range(80):
+        router.submit(Request(prompt=(i, 2, 3), op="generate", n_new=2,
+                              deadline=t + 80.0), t)
+        t += float(rng.exponential(4.0))
+    return router, router.drain()["router"]["autoscale"]
+
+
+def test_router_signal_on_the_card(cuda):
+    """A stub-plane Router with no device scores its planes on the card:
+    ``pmf_conv`` launches, planes are added and retired, and the routing
+    decisions are those of the same Router on ``"cpu"``, which launches
+    nothing on the card."""
+    reset_launch_counts()
+    card, card_auto = _stub_plane_router(None)
+    launches = launch_counts()["pmf_conv"]
+    reset_launch_counts()
+    host, host_auto = _stub_plane_router("cpu")
+    assert launch_counts()["pmf_conv"] == 0
+    assert launches > 0
+    assert card.plane_scaler.device == cuda
+    assert card_auto["plane_scale_ups"] > 0
+    assert card_auto["plane_scale_downs"] > 0
+    assert card.decisions == host.decisions and card_auto == host_auto
 
 
 def test_engine_batched_equals_one_at_a_time(cuda):
