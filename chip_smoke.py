@@ -10,9 +10,11 @@ Phases (any failure exits non-zero and prints no result line):
 2. Hold each kernel against its plain PyTorch version on the card, at the
    main paths' shapes, and time kernel, plain version and the one-call
    PyTorch yardstick where there is one (device time a call from
-   ``torch.profiler``, the JSON line's ms; and the wall time a call of
-   back-to-back calls, which for short kernels is the host's launch
-   rate):
+   ``torch.profiler``, each call after a 256 MB write that evicts the 50
+   MB L2, the JSON line's ms, which must not fall under the row's bound;
+   the same back to back without it, the warm ``warm_ms``; and the wall
+   time a call of back-to-back calls, which for short kernels is the
+   host's launch rate):
    * contiguous decode attention, B in {1, 8}, lengths 38-50 in a
      ``max_len`` = 64 cache (the one-at-a-time path) and up to 1024 in a
      1024-key cache.  Against the plain version on the inputs cast to f32
@@ -201,15 +203,18 @@ Phases (any failure exits non-zero and prints no result line):
      must equal the launches a step makes (32 ``decode_attention`` and 65
      ``rmsnorm`` a decode step, 129 ``rmsnorm`` and 65 ``rmsnorm_bwd`` a
      training step);
-   * (c) ``python -m repro_torch.launch.dryrun`` for smollm-360m
-     decode_32k, llama3-8b train_4k, xlstm-125m train_4k and
-     prefill_32k (traced with their scans cut to 2 and 3 trips), and
-     zamba2-2.7b decode_32k (its Mamba2 update on each rank's (batch,
-     head) shards), and
-     ``python -m repro_torch.launch.perf --cell xlstm`` (one process a
-     variant), on the fake 16 x 16 mesh, as concurrent subprocesses on the
-     host: each exits 0 with an ``ok`` row; each row's terms and wall are
-     printed, and the ladder's order by bytes.
+   * (c) ``python -m repro_torch.launch.dryrun`` on the fake 16 x 16
+     mesh for smollm-360m decode_32k, llama3-8b train_4k, xlstm-125m
+     train_4k and prefill_32k (traced with their scans cut to 2 and 3
+     trips), and zamba2-2.7b decode_32k (its Mamba2 update on each rank's
+     (batch, head) shards), and ``python -m repro_torch.launch.perf
+     --cell xlstm`` there (one process a variant); on the fake 4 x 2 mesh,
+     smollm-360m's and zamba2-2.7b's decode_32k at cache lengths 16384
+     and 32768 (``--seq-len``), whose collective bytes must be equal
+     (decode attention combines its softmax across the sequence's
+     shards); all as concurrent subprocesses on the host: each exits 0
+     with an ``ok`` row; each row's terms and wall are printed, and the
+     ladder's order by bytes.
 11. The port's examples on the card, each a subprocess that zeroes the
    launch counters before its run and prints them after:
    ``python -m repro_torch.examples.serve_smse`` (80 requests, 2 planes,
@@ -277,40 +282,98 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+#: bytes rewritten before each cold call (a bitwise not of int16): over
+#: twice the H100's 50 MB L2, so the call finds its operands in HBM, and
+#: the L2 full of another kernel's dirty lines, as a layer of a step finds
+#: them after the layers between
+L2_FLUSH_BYTES = 256 * 2 ** 20
+#: parts of that kernel's name (ATen's ``bitwise_not_kernel_cuda`` on
+#: int16; a mask's ``~`` is the same kernel on bool)
+MARK_KERNEL = ("bitwise_not", "(short)")
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3,
+              cold: bool = False) -> float:
     """Device time per call of ``fn``: the summed durations of the kernels
-    (and copies) it launches, from ``torch.profiler``."""
+    (and copies) it launches, from ``torch.profiler``, over the calls the
+    profiler kept whole.  A bitwise not of an int16 buffer before each
+    call and after the last marks the calls apart (a session may drop
+    events: one in phase 8 kept 15 of 20 calls); ``cold`` makes that
+    buffer ``L2_FLUSH_BYTES``, which evicts the L2, else it is 2 bytes.
+    The marks are left out of the sum, and no timed function may launch
+    their kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    mark = torch.zeros((L2_FLUSH_BYTES if cold else 2) // 2,
+                       dtype=torch.int16, device="cuda")
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    name = getattr(fn, "__name__", fn)
     # a profiler session now and then records no device event at all
     # (seen once in phase 2 on an H100); such a session is taken again
     for attempt in range(3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
+                mark.bitwise_not_()
                 fn()
+            mark.bitwise_not_()
             torch.cuda.synchronize()
-        us = sum(e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == DeviceType.CUDA)
-        if us > 0:
-            return us / 1e3 / iters
-        log(f"  (profiler session {attempt + 1} of {getattr(fn, '__name__', fn)}"
-            f" recorded no device time)")
-    raise AssertionError("the profiler recorded no device time")
+        events = sorted((e.time_range.start, e.name, e.time_range.elapsed_us())
+                        for e in prof.events()
+                        if e.device_type == DeviceType.CUDA)
+        calls, current = [], None      # each call: the us between two marks
+        for _, kernel, us in events:
+            if all(part in kernel for part in MARK_KERNEL):
+                if current is not None:
+                    calls.append(current)
+                current = 0.0
+            elif current is not None:
+                current += us
+        if len(calls) > iters:
+            raise AssertionError(f"{name} launches the marks' kernel")
+        if calls:
+            if len(calls) < iters:
+                log(f"  (the profiler kept {len(calls)} of {iters} calls of "
+                    f"{name} whole)")
+            return sum(calls) / len(calls) / 1e3
+        log(f"  (profiler session {attempt + 1} of {name} recorded "
+            f"{len(events)} device events and no whole call; taken again)")
+    raise AssertionError(f"the profiler recorded no whole call of {name}")
 
 
 def timings(kern, plain, library=None, iters: int = 64) -> dict:
-    """Device time per call (the row's ms, plain_ms, library_ms) and, under
-    "wall", the back-to-back wall time per call of kernel, plain version
-    and yardstick."""
+    """Device time per call (the row's ms, plain_ms, library_ms), each
+    call with a cold L2 (``device_ms(cold=True)``); under "warm" the same
+    back to back on operands the L2 may hold; and under "wall", the
+    back-to-back wall time per call of kernel, plain version and
+    yardstick."""
     calls = {"ms": kern, "plain_ms": plain, "library_ms": library}
-    row = {k: None if f is None else device_ms(f) for k, f in calls.items()}
+    row = {k: None if f is None else device_ms(f, cold=True)
+           for k, f in calls.items()}
+    row["warm"] = {k: None if f is None else device_ms(f)
+                   for k, f in calls.items()}
     row["wall"] = {k: None if f is None else time_ms(f, iters=iters)
                    for k, f in calls.items()}
     return row
+
+
+def cold_and_warm(row: dict, library: str = "library") -> str:
+    """A kernel row's device times a call, cold L2 and [warm], beside its
+    bound; a cold time under the bound fails (operands found in the L2
+    are not a kernel's speed)."""
+    if row["ms"] < row["bound_ms"]:
+        raise AssertionError(f"{row.get('name', library)}: {row['ms']:.6f} "
+                             f"ms with a cold L2, under its bound "
+                             f"{row['bound_ms']:.6f} ms")
+
+    def both(k):
+        return ("none" if row[k] is None else
+                f"{row[k]:.5f} [{row['warm'][k]:.5f}]")
+    return (f"device time a call, cold L2 [warm]: kernel {both('ms')} ms, "
+            f"plain {both('plain_ms')} ms, {library} {both('library_ms')}"
+            f"; bound {row['bound_ms']:.6f} ms ({row['bound_by']})")
 
 
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
@@ -497,7 +560,7 @@ def check_decode_attention(mc, max_len: int) -> dict:
                         "decode_attention.py:86",
             "max_abs_err": worst, **{k: main[k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                "wall")},
+                "warm", "wall")},
             "shape": f"B=1 H={h} Hkv={hkv} hd={hd} S={max_len} "
                      f"keys={main['keys']}; max|err| vs f32 plain "
                      f"{worst_f32:.3g}, vs split model {worst_split:.3g}; "
@@ -510,7 +573,7 @@ def check_decode_attention(mc, max_len: int) -> dict:
                      f"{worst_window:.3g} at windows {WINDOWS}",
             **{f"window_{k}": win[k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                "keys")}, "window_wall_ms": win["wall"]["ms"]}
+                "keys", "warm")}, "window_wall_ms": win["wall"]["ms"]}
 
 
 def window_times(hkv: int, hd: int, h: int, layers: int, g) -> dict:
@@ -744,7 +807,7 @@ def check_paged_attention(mc, max_len: int, max_batch: int, ps: int) -> dict:
         F.scaled_dot_product_attention(q[:, :, None], kc[i], vc[i],
                                        attn_mask=mask, enable_gqa=True)
 
-    sdpa_ms = device_ms(sdpa)
+    sdpa_ms = device_ms(sdpa, cold=True)
     del kc, vc
     return {"name": "paged_decode_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
@@ -752,7 +815,7 @@ def check_paged_attention(mc, max_len: int, max_batch: int, ps: int) -> dict:
                         "decode_attention.py:166",
             "max_abs_err": worst, **{k: long[k] for k in (
                 "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-                "wall")},
+                "warm", "wall")},
             "shape": f"B={max_batch} H={h} Hkv={hkv} hd={hd} PS={ps} "
                      f"MP={mp} keys={long['keys']}; max|err| vs f32 plain "
                      f"{worst_f32:.3g}, vs split model {worst_split:.3g}; "
@@ -2244,8 +2307,9 @@ def check_rmsnorm_bwd() -> dict:
             if shape in (BWD_SHAPE, (8, 1, 960)):
                 worst = max(worst, err)
             n += 1
-    # timed on BWD_SETS input sets in turn, 126 MB in all: each call
-    # finds its inputs out of the 50 MB L2 cache, as a training step's
+    # timed on BWD_SETS input sets in turn, 126 MB in all (the warm
+    # figure: a set's 47 MB may still sit in the 50 MB L2 in part); the
+    # cold figure flushes the L2 before each call, as a training step's
     # backward finds the norm's saved input
     sets = itertools.cycle([inputs(BWD_SHAPE, torch.bfloat16)
                             for _ in range(BWD_SETS)])
@@ -2520,10 +2584,8 @@ def train_phase(smi: str) -> dict:
     row = check_rmsnorm_bwd()
     log(f"phase 8: training on the card ({smi})")
     log(f"  rmsnorm_bwd {row['shape']} ({time.perf_counter() - t0:.1f} s):"
-        f" device time a call: kernel {row['ms']:.5f} ms, plain "
-        f"{row['plain_ms']:.5f} ms, autograd through F.rms_norm "
-        f"{row['library_ms']}; bound {row['bound_ms']:.6f} ms "
-        f"({row['bound_by']}); back-to-back wall a call {row['wall']}; "
+        f" {cold_and_warm(row, 'autograd through F.rms_norm')}; "
+        f"back-to-back wall a call {row['wall']}; "
         f"max|err| {row['max_abs_err']:.3g}")
     from repro_torch.configs.registry import ARCHS
     t0 = time.perf_counter()
@@ -2591,6 +2653,10 @@ DRYRUN_OUT = ROOT / "build" / "dryrun_phase10"
 DRYRUN_CELLS = (("smollm-360m", "decode_32k"), ("llama3-8b", "train_4k"),
                 ("xlstm-125m", "train_4k"), ("xlstm-125m", "prefill_32k"),
                 ("zamba2-2.7b", "decode_32k"))
+#: the decode cells traced on the fake 4 x 2 mesh at two cache lengths
+#: each: a rank's collective bytes must not depend on the length
+LENGTH_CELLS, LENGTHS = ("smollm-360m", "zamba2-2.7b"), (16384, 32768)
+SMALL_MESH = {"DRYRUN_DEVICES": "8", "DRYRUN_MESH": "4,2"}
 #: the hillclimb cell ``launch.perf`` traces there, one process a variant
 PERF_CELL = "xlstm"
 #: PERF.md's hand counts (PR 17): the weight bytes a B=1 smollm-360m
@@ -2741,51 +2807,72 @@ def counted_bounds(cfg) -> dict:
     return {"decode": decode, "train": train}
 
 
-def dryrun_cells() -> tuple[list[dict], list[dict]]:
+def dryrun_cells() -> tuple[list[dict], list[dict], list[dict]]:
     """``python -m repro_torch.launch.dryrun`` on the fake 16 x 16 mesh for
-    each of ``DRYRUN_CELLS`` and ``python -m repro_torch.launch.perf
-    --cell PERF_CELL`` for each of its variants, as concurrent
-    subprocesses on the host (no card): each exits 0, and writes ``ok``
-    rows; (dry-run rows, perf rows), each with its wall."""
+    each of ``DRYRUN_CELLS``, on the fake 4 x 2 mesh for each of
+    ``LENGTH_CELLS``' decode_32k at each of ``LENGTHS`` (``--seq-len``),
+    and ``python -m repro_torch.launch.perf --cell PERF_CELL`` for each of
+    its variants, as concurrent subprocesses on the host (no card): each
+    exits 0, and writes ``ok`` rows; (dry-run rows, 4 x 2 rows, perf
+    rows), each with its wall."""
     from repro_torch.launch.perf import CELLS
     DRYRUN_OUT.mkdir(parents=True, exist_ok=True)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                CUDA_VISIBLE_DEVICES="")
     runs = [(f"{arch} {shape}", DRYRUN_OUT / f"{arch}.{shape}.jsonl",
-             ["repro_torch.launch.dryrun", "--arch", arch, "--shape", shape])
-            for arch, shape in DRYRUN_CELLS]
+             ["repro_torch.launch.dryrun", "--arch", arch, "--shape", shape],
+             {}) for arch, shape in DRYRUN_CELLS]
+    runs += [(f"{arch} decode_32k 4x2 S={n}",
+              DRYRUN_OUT / f"{arch}.decode_32k.4x2.{n}.jsonl",
+              ["repro_torch.launch.dryrun", "--arch", arch, "--shape",
+               "decode_32k", "--seq-len", str(n)], SMALL_MESH)
+             for arch in LENGTH_CELLS for n in LENGTHS]
     runs += [(f"perf {PERF_CELL}:{tag}",
               DRYRUN_OUT / f"perf.{PERF_CELL}.{tag}.jsonl",
               ["repro_torch.launch.perf", "--cell", PERF_CELL, "--variant",
-               tag]) for tag, _ in CELLS[PERF_CELL]["variants"]]
+               tag], {}) for tag, _ in CELLS[PERF_CELL]["variants"]]
     procs = []
-    for what, out, argv in runs:
+    for what, out, argv, extra in runs:
         out.unlink(missing_ok=True)
-        procs.append((what, out, time.perf_counter(), subprocess.Popen(
+        procs.append((what, out, extra, time.perf_counter(), subprocess.Popen(
             [sys.executable, "-m", *argv, "--out", str(out)], cwd=ROOT,
-            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-            text=True)))
+            env=dict(env, **extra), stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)))
     rows = []
     try:
-        for what, out, t0, p in procs:
+        for what, out, extra, t0, p in procs:
             stdout, stderr = p.communicate(timeout=600)
             wall = time.perf_counter() - t0
             if p.returncode != 0 or not out.exists():
                 raise AssertionError(f"{what} exited {p.returncode}:\n"
                                      f"{stderr[-3000:]}")
             row = json.loads(out.read_text().splitlines()[-1])
-            if row["status"] != "ok" or row["chips"] != 256:
+            if row["status"] != "ok" or row["chips"] != (8 if extra else 256):
                 raise AssertionError(f"{what}: {row}")
             if what.startswith("perf") and "roofline_fused" not in row:
                 raise AssertionError(f"{what}: no fused-credit roofline")
             rows.append(dict(row, wall_s=wall))
     finally:
-        for _, _, _, p in procs:
+        for _, _, _, _, p in procs:
             if p.poll() is None:
                 p.kill()
                 p.communicate()
-    return ([r for r in rows if "variant" not in r],
+    return ([r for r in rows if "variant" not in r and r["chips"] == 256],
+            [r for r in rows if r["chips"] == 8],
             [r for r in rows if "variant" in r])
+
+
+def length_check(rows: list[dict]) -> dict:
+    """Each of ``LENGTH_CELLS``' rank 0 collective bytes on 4 x 2, by
+    cache length; the lengths must give equal bytes."""
+    got = {arch: {r["seq_len"]: r["roofline"]["collective_bytes_per_chip"]
+                  for r in rows if r["arch"] == arch}
+           for arch in LENGTH_CELLS}
+    for arch, by_len in got.items():
+        if sorted(by_len) != sorted(LENGTHS) or len(set(by_len.values())) != 1:
+            raise AssertionError(f"{arch} decode on 4 x 2: collective bytes "
+                                 f"by cache length {by_len} differ")
+    return got
 
 
 def parallel_phase(smi: str, measured: dict) -> dict:
@@ -2853,11 +2940,25 @@ def parallel_phase(smi: str, measured: dict) -> dict:
             f"{v['flops'] / 1e9:.4f} GFLOP" for k, v in
             sorted(rl.kernels.items())))
     t0 = time.perf_counter()
-    rows, perf = dryrun_cells()
+    rows, small, perf = dryrun_cells()
     log(f"  (c) python -m repro_torch.launch.dryrun and launch.perf --cell "
-        f"{PERF_CELL} on the fake 16 x 16 mesh (host only, "
-        f"{len(rows) + len(perf)} concurrent processes, "
+        f"{PERF_CELL} on the fake 16 x 16 mesh, and the decode length "
+        f"check on 4 x 2 (host only, torch {torch.__version__}, "
+        f"{len(rows) + len(small) + len(perf)} concurrent processes, "
         f"{time.perf_counter() - t0:.1f} s):")
+    lengths = length_check(small)
+    for arch, by_len in lengths.items():
+        log(f"      {arch} decode on the fake 4 x 2 mesh, rank 0's "
+            f"collective bytes by cache length: " + ", ".join(
+                f"S={n} {b:.6e}" for n, b in sorted(by_len.items()))
+            + " (equal)")
+    for r in sorted(small, key=lambda r: (r["arch"], r["seq_len"])):
+        rl = r["roofline"]
+        log(f"      {r['arch']} decode 4 x 2 S={r['seq_len']}: "
+            f"{rl['flops_per_chip']:.6e} FLOP, {rl['bytes_per_chip']:.6e} "
+            f"B, collectives {rl['collective_bytes_per_chip']:.6e} B in "
+            f"{sum(rl['collective_counts'].values()):.0f} "
+            f"({rl['collectives']}); ok in {r['wall_s']:.1f} s")
     for r in rows + perf:
         rl = r["roofline"]
         what = (f"perf {r['cell']}:{r['variant']} ({r['arch']} "
@@ -2883,7 +2984,7 @@ def parallel_phase(smi: str, measured: dict) -> dict:
     log(f"    main-path kernel launches: {counts}")
     log(f"  phase 10 took {time.perf_counter() - t00:.1f} s")
     return {"counts": counts, "bounds": bounds, "dryrun": rows,
-            "perf": perf, "compression": comp}
+            "lengths": lengths, "perf": perf, "compression": comp}
 
 
 # ---------------------------------------------------------------------------
@@ -3114,18 +3215,16 @@ def main() -> int:
         f"{fa['max_abs_err']:.3g}, vs f32 plain and split model "
         f"{fa['max_abs_err_f32']:.3g}")
     for r in rows:
-        log(f"  {r['name']:24s} {r['shape']}: device time a call: kernel "
-            f"{r['ms']:.5f} ms, plain {r['plain_ms']:.5f} ms, library "
-            f"{r['library_ms']}; bound {r['bound_ms']:.6f} ms "
-            f"({r['bound_by']}); back-to-back wall a call {r['wall']}; "
+        log(f"  {r['name']:24s} {r['shape']}: {cold_and_warm(r)}; "
+            f"back-to-back wall a call {r['wall']}; "
             f"max|err| {r['max_abs_err']:.3g}")
     w = rows[0]
     log(f"  decode_attention windowed (B=1, {w['window_keys']} of "
-        f"{WINDOW_TIMED_KEYS} keys): device time a call: kernel "
-        f"{w['window_ms']:.5f} ms, plain {w['window_plain_ms']:.5f} ms, "
-        f"sdpa with the mask {w['window_library_ms']:.5f} ms; bound "
-        f"{w['window_bound_ms']:.6f} ms ({w['window_bound_by']}); "
-        f"back-to-back wall a call {w['window_wall_ms']:.5f} ms")
+        f"{WINDOW_TIMED_KEYS} keys): " + cold_and_warm(
+            {"name": "decode_attention windowed",
+             **{k[7:]: v for k, v in w.items() if k.startswith("window_")}},
+            "sdpa with the mask")
+        + f"; back-to-back wall a call {w['window_wall_ms']:.5f} ms")
     fl = launch_floor()
     log(f"  launch floor (empty kernel, ctypes): device {fl['ms']:.5f} ms, "
         f"back-to-back wall {fl['wall_ms']:.5f} ms a call")
@@ -3314,6 +3413,7 @@ def main() -> int:
             ex["counts"]))
         r.pop("shape")
         r["wall_ms"] = r.pop("wall")["ms"]
+        r["warm_ms"] = r.pop("warm")["ms"]
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,6 +21,7 @@ Usage:
   python -m repro_torch.launch.dryrun --arch llama3-8b --shape train_4k
   python -m repro_torch.launch.dryrun --arch llama3-8b --shape decode_32k --multipod
   python -m repro_torch.launch.dryrun --all --out results/dryrun_torch.jsonl
+  python -m repro_torch.launch.dryrun --arch smollm-360m --shape decode_32k --seq-len 16384
 
 ``DRYRUN_MESH`` ("4,2" / "2,2,2") replaces the production mesh with a
 small one (testing); ``DRYRUN_DEVICES`` caps the world size (default 512).
@@ -31,6 +32,7 @@ A cell whose step reaches an op DTensor has no sharding rule for is an
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -330,12 +332,14 @@ def cell_cost(cfg, shape, mesh, fsdp: bool = True,
 def lower_cell(arch_name: str, shape_name: str, multi_pod: bool,
                fsdp: bool | None = None, verbose: bool = True,
                overrides: dict | None = None,
-               fused_credit: bool = False) -> dict:
+               fused_credit: bool = False,
+               seq_len: int | None = None) -> dict:
     """Trace one cell for rank 0 (``cell_cost``, extrapolated to the full
     depth and, for an xLSTM train or prefill step, to its scans' full
     trip count).
 
-    The argument bytes are the full state's.  ``overrides`` are
+    The argument bytes are the full state's.  ``seq_len`` replaces the
+    shape's sequence length (a decode's cache length).  ``overrides`` are
     ModelConfig fields for perf variants; ``fused_credit=True`` also
     records the roofline with the fused regions (flash attention, SSD and
     mLSTM scans) costed at their boundary bytes (``op_cost.region``)."""
@@ -343,6 +347,8 @@ def lower_cell(arch_name: str, shape_name: str, multi_pod: bool,
     if overrides:
         cfg = cfg.scaled(**overrides)
     shape = get_shape(shape_name)
+    if seq_len:
+        shape = dataclasses.replace(shape, seq_len=seq_len)
     ok, why = shape_applicable(cfg, shape)
     mesh_name = "multipod" if multi_pod else "pod"
     if not ok:
@@ -360,7 +366,7 @@ def lower_cell(arch_name: str, shape_name: str, multi_pod: bool,
     result = {"arch": arch_name, "shape": shape_name, "mesh": mesh_name,
               "chips": chips, "n_params": n_params,
               "n_active_params": n_active, "kind": shape.kind,
-              "status": "running"}
+              "seq_len": s, "status": "running"}
     got = cell_cost(cfg, shape, mesh, fsdp=True if fsdp is None else fsdp)
     result["memory"] = got["memory"]
     if got["optimizer"]:
@@ -392,6 +398,9 @@ def main(argv=None):
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--no-fsdp", action="store_true")
     ap.add_argument("--out", default=None, help="append JSONL results here")
+    ap.add_argument("--seq-len", type=int, default=None,
+                    help="replace each shape's sequence length (a decode's "
+                         "cache length)")
     args = ap.parse_args(argv)
 
     cells = []
@@ -414,7 +423,8 @@ def main(argv=None):
                 tag = f"{a} x {sh} x {'multipod' if mp else 'pod'}"
                 print(f"=== dry-run {tag} ===", flush=True)
                 try:
-                    res = lower_cell(a, sh, mp, fsdp=(not args.no_fsdp))
+                    res = lower_cell(a, sh, mp, fsdp=(not args.no_fsdp),
+                                     seq_len=args.seq_len)
                 except Exception as e:
                     traceback.print_exc()
                     res = {"arch": a, "shape": sh,

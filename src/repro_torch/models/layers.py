@@ -316,12 +316,16 @@ def decode_attention(q, k_cache, v_cache, length, window: int = 0):
 
 def decode_attention_plain(q, k_cache, v_cache, length, window: int = 0):
     """The plain code of ``decode_attention`` on any device: the JAX
-    layer's formula and cast order."""
+    layer's formula and cast order.  Under ``parallel.ctx``, on a DTensor
+    cache (sequence-sharded by ``cache_specs``), it is
+    ``ctx.decode_on_seq_shards``: each rank attends to its slice of the
+    cache, and the softmax is combined across the slices."""
+    if pctx.on_mesh(k_cache):
+        return pctx.decode_on_seq_shards(q, k_cache, v_cache, length, window)
     b, smax, hkv, hd = k_cache.shape
     h = q.shape[1]
     groups = h // hkv
-    # batch over DP, heads whole: the query meets a sequence-sharded cache
-    qg = pctx.shard_batch_seq(pctx.reshape(q, (b, hkv, groups, hd)))
+    qg = q.reshape(b, hkv, groups, hd)
     scale = 1.0 / math.sqrt(hd)
     s = torch.einsum("bkgd,bskd->bkgs", qg, k_cache).float() * scale
     pos = torch.arange(smax, device=q.device)
@@ -331,7 +335,7 @@ def decode_attention_plain(q, k_cache, v_cache, length, window: int = 0):
     s = s.masked_fill(~mask[:, None, None, :], float("-inf"))
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", p.to(v_cache.dtype), v_cache)
-    return pctx.reshape(out, (b, h, hd))
+    return out.reshape(b, h, hd)
 
 
 def attention_apply(p, x, cfg, positions=None, kv_cache=None, length=None,
@@ -409,7 +413,11 @@ def attention_apply(p, x, cfg, positions=None, kv_cache=None, length=None,
     pctx.write_rows(v_cache, rows, pos, v_new[:, 0].to(v_cache.dtype))
     out = decode_attention(q[:, 0], k_cache, v_cache, length + 1,
                            window=cfg.sliding_window)
-    out = dense(p["wo"], pctx.reshape(out, (b, 1, h * hd)))
+    # the output projection's partial sum over 'model' summed here, in
+    # the activations' dtype, as in prefill (left to DTensor, some
+    # versions carry it into the residual stream and sum it in f32 at each
+    # norm that reads it)
+    out = pctx.shard_hidden(dense(p["wo"], pctx.reshape(out, (b, 1, h * hd))))
     return out, (k_cache, v_cache)
 
 

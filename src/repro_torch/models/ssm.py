@@ -152,4 +152,7 @@ def mamba2_apply(p, x, ssm_cfg, state=None, conv_state=None):
     yf = y.float() * F.silu(z.float())
     var = torch.mean(yf * yf, dim=-1, keepdim=True)
     y = (yf * torch.rsqrt(var + 1e-5)).to(x.dtype) * p["norm_scale"]
-    return pctx.matmul(y, p["out_proj"]["w"]), state, new_conv_state
+    # the output projection's partial sum over 'model' summed here, as
+    # the attention's and the MLP's are (see ``layers.attention_apply``)
+    return (pctx.shard_hidden(pctx.matmul(y, p["out_proj"]["w"])), state,
+            new_conv_state)

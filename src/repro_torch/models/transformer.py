@@ -475,8 +475,9 @@ def decode_fn(cfg: ModelConfig):
                 a2 = decode_attention(pctx.reshape(xq, (b, cfg.n_heads, hd)),
                                       cache["ck"][i], cache["cv"][i],
                                       cache["enc_len"])
-                h = h + dense(lp["cross_attn"]["wo"],
-                              pctx.reshape(a2, (b, 1, cfg.n_heads * hd)))
+                h = h + pctx.shard_hidden(dense(
+                    lp["cross_attn"]["wo"],
+                    pctx.reshape(a2, (b, 1, cfg.n_heads * hd))))
                 h = h + mlp_apply(lp["mlp"], rmsnorm(lp["ln2"], h))
         cache = dict(cache, len=length + 1)
         return _logits(cfg, params, h[:, 0]), cache

@@ -16,10 +16,13 @@ two sharded dims), so more helpers keep the model on the placements the
 rules name: ``place_cache``, ``write_rows``, ``write_prefix``,
 ``gather_vocab``, ``embedding``, ``reshape``, ``einsum``, ``matmul``,
 ``per_shard``, which runs attention, independent over batch and heads,
-on each rank's shards, ``per_shard_rows``, which runs the xLSTM scans on
-each rank's rows, ``per_shard_bh``, which runs the Mamba2 scan on each
-rank's (batch, head) shards, ``take_seq``, the causal conv's gather of
-windows, and ``logsigmoid``, whose backward DTensor has no rule for.
+on each rank's shards, ``decode_on_seq_shards``, which runs decode
+attention on each rank's slice of a sequence-sharded cache and combines
+the softmax across the slices, ``per_shard_rows``, which runs the xLSTM
+scans on each rank's rows, ``per_shard_bh``, which runs the Mamba2 scan
+on each rank's (batch, head) shards, ``take_seq``, the causal conv's
+gather of windows, and ``logsigmoid``, whose backward DTensor has no
+rule for.
 With the context off each is the plain op.
 
 Rules:
@@ -61,14 +64,16 @@ def active() -> bool:
     return _STATE["on"]
 
 
+def on_mesh(x) -> bool:
+    """Whether the context is on and ``x`` is a DTensor."""
+    return _STATE["on"] and _is_dtensor(x)
+
+
 def _wsc(x, spec):
     """``x`` redistributed to ``spec``'s placements on the context's mesh;
     a plain tensor (a constant the model made) counts as replicated."""
-    from torch.distributed.tensor import DTensor, Replicate
     mesh = _STATE["mesh"]
-    if not isinstance(x, DTensor):
-        x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
-                               run_check=False)
+    x = _replicated(x, mesh)
     placements = to_placements(spec, mesh)
     if tuple(x.placements) == placements:
         return x
@@ -195,8 +200,7 @@ def einsum(eq: str, *ops):
     ins, out = eq.replace(" ", "").split("->")
     ins = ins.split(",")
     mesh = next(o.device_mesh for o in ops if isinstance(o, DTensor))
-    ops = [o if isinstance(o, DTensor) else DTensor.from_local(
-        o, mesh, [Replicate()] * mesh.ndim, run_check=False) for o in ops]
+    ops = [_replicated(o, mesh) for o in ops]
     target = [list(o.placements) for o in ops]
     out_pl = []
     for m in range(mesh.ndim):
@@ -261,9 +265,7 @@ def embedding(table, ids):
     from torch.distributed.tensor import DTensor, Partial, Replicate
     mesh, pl = table.device_mesh, tuple(table.placements)
     vocab = [m for m, p in enumerate(pl) if p.is_shard(0)]
-    if not isinstance(ids, DTensor):
-        ids = DTensor.from_local(ids, mesh, [Replicate()] * mesh.ndim,
-                                 run_check=False)
+    ids = _replicated(ids, mesh)
     # whole rows (an FSDP-sharded width is gathered), ids whole over the
     # vocabulary's mesh dims
     table = table.redistribute(mesh, [p if m in vocab else Replicate()
@@ -313,6 +315,71 @@ def per_shard(fn, q, k, v, **kwargs):
               shape[3], 1)
     return DTensor.from_local(out, q.device_mesh, pl, run_check=False,
                               shape=shape, stride=stride)
+
+
+def decode_on_seq_shards(q, k_cache, v_cache, length, window: int = 0):
+    """Single-token attention of ``q`` (B, H, hd) against a DTensor KV
+    cache (B, S, Hkv, hd) placed by ``cache_specs``, split over the ranks
+    as flash-decode splits it over blocks: each rank attends to its own
+    slice of S (its batch shard of ``q`` and ``length``, a plain tensor
+    cut to it) with its keys masked at their global positions, against
+    ``length`` and ``window``, and keeps f32 partials: the scores' max
+    ``m`` (a finite floor where the rank holds no attended key, which then
+    adds zero), ``l = sum(exp(s - m))`` and ``o = exp(s - m) @ v``.  The
+    partials are combined over the mesh dims that split S: a max of ``m``,
+    then one sum of ``l`` and ``o``, each rescaled by ``exp(m - max)`` —
+    B·H·(hd + 2) numbers a call, whatever S is, where the plain formula on
+    DTensors gathers the scores or the cache.  The output, ``o / l`` in
+    the cache's dtype, keeps the cache's batch split."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = k_cache.device_mesh
+    split = [p if p.is_shard() and p.dim in (0, 1) else Replicate()
+             for p in k_cache.placements]
+    rows = [Shard(0) if p.is_shard(0) else Replicate() for p in split]
+    seq = [m for m, p in enumerate(split) if p.is_shard(1)]
+    b, smax, hkv, hd = k_cache.shape
+    h = q.shape[1]
+    s0 = _rank_range(smax, mesh, seq)[0]
+    k, v = (c.redistribute(mesh, split).to_local() for c in (k_cache, v_cache))
+    ql, ln = (_replicated(t, mesh).redistribute(mesh, rows).to_local()
+              for t in (q, length))
+    nb = ql.shape[0]
+    s = torch.einsum("bkgd,bskd->bkgs", ql.reshape(nb, hkv, h // hkv, hd),
+                     k).float() * (1.0 / math.sqrt(hd))
+    pos = s0 + torch.arange(k.shape[1], device=k.device)
+    mask = pos[None, :] < ln[:, None]
+    if window:
+        mask = mask & (pos[None, :] >= (ln[:, None] - window))
+    s = s.masked_fill(~mask[:, None, None, :], float("-inf"))
+    m = s.amax(dim=-1).clamp(min=-1e30)
+    p = torch.exp(s - m[..., None])
+    o = torch.cat([torch.einsum("bkgs,bskd->bkgd", p.to(v.dtype), v).float(),
+                   p.sum(dim=-1)[..., None]], dim=-1)         # (o, l)
+
+    def combined(t, op: str):
+        """``t``, a partial ``op`` over the mesh dims that split S, reduced
+        there."""
+        shape = (b,) + tuple(t.shape[1:])
+        stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+        pl = [Partial(op) if i in seq else r for i, r in enumerate(rows)]
+        return DTensor.from_local(t, mesh, pl, run_check=False, shape=shape,
+                                  stride=stride).redistribute(
+                                      mesh, rows).to_local()
+    if seq:
+        top = combined(m, "max")
+        o = combined(o * torch.exp(m - top)[..., None], "sum")
+    out = (o[..., :hd] / o[..., hd:]).to(v.dtype).reshape(nb, h, hd)
+    return DTensor.from_local(out, mesh, rows, run_check=False,
+                              shape=(b, h, hd), stride=(h * hd, hd, 1))
+
+
+def _replicated(t, mesh):
+    """``t`` as a DTensor: a plain tensor counts as replicated."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if isinstance(t, DTensor):
+        return t
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
 
 
 def per_shard_rows(fn, *args, weights=()):
@@ -515,15 +582,37 @@ def place_cache(cache: dict, global_batch: int) -> dict:
 def write_rows(cache, rows, pos, value) -> None:
     """``cache[rows, pos] = value``: row ``rows[i]`` of a (B, S, ...) cache
     takes ``value[i]`` at position ``pos[i]`` (``rows`` is ``arange(B)``).
-    On DTensors it is JAX's one-hot blend, elementwise, so it keeps the
-    cache's sharding of B and S."""
+    On a DTensor cache each rank writes into its own shard, as GSPMD
+    partitions a dynamic-update-slice: the rows of its batch shard whose
+    position falls in its slice of S, at the position less the slice's
+    first index, with no pass over the cache.  ``value`` (a plain tensor
+    counts as replicated) is brought to the cache's split of the dims it
+    shares: a local cut where it is replicated, no collective where it is
+    split alike, and a gather of B·Hkv·hd numbers where its heads are
+    split and the cache's are whole."""
     if not (_STATE["on"] and _is_dtensor(cache)):
         cache[rows, pos] = value
         return
-    s = torch.arange(cache.shape[1], device=pos.device)
-    hit = (s[None, :] == pos[:, None]).reshape(
-        pos.shape + (cache.shape[1],) + (1,) * (cache.ndim - 2))
-    cache.copy_(torch.where(hit, value[:, None], cache))
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = cache.device_mesh
+    batch = [Shard(0) if p.is_shard(0) else Replicate()
+             for p in cache.placements]
+    lo = [_rank_range(cache.shape[d], mesh,
+                      [m for m, p in enumerate(cache.placements)
+                       if p.is_shard(d)])[0] for d in (0, 1)]
+    local = cache.to_local()
+    if local.shape[1] == 0:
+        return
+    # the value lacks the cache's dim 1: a shard of a later dim moves down
+    at_value = [Shard(p.dim - 1) if p.is_shard() and p.dim > 1 else
+                Replicate() if p.is_shard(1) else p for p in cache.placements]
+    val = _replicated(value, mesh).redistribute(mesh, at_value).to_local()
+    r, s = (_replicated(t, mesh).redistribute(mesh, batch).to_local() - o
+            for t, o in ((rows, lo[0]), (pos, lo[1])))
+    hit = (s >= 0) & (s < local.shape[1])
+    s = s.clamp(0, local.shape[1] - 1)
+    hit = hit.reshape(hit.shape + (1,) * (val.ndim - 1))
+    local[r, s] = torch.where(hit, val, local[r, s])
 
 
 def write_prefix(dst, src, dim: int = 1) -> None:
@@ -555,10 +644,7 @@ def gather_vocab(logits, idx):
         return torch.gather(logits, -1, idx)
     idx_pl = tuple(Replicate() if m in vocab_dims else p
                    for m, p in enumerate(pl))
-    if not isinstance(idx, DTensor):
-        idx = DTensor.from_local(idx, mesh, [Replicate()] * mesh.ndim,
-                                 run_check=False)
-    idx = idx.redistribute(mesh, idx_pl)
+    idx = _replicated(idx, mesh).redistribute(mesh, idx_pl)
     lo = _rank_offset(logits.shape[vdim], mesh, vocab_dims)
     local, li = logits.to_local(), idx.to_local()
     n = local.shape[-1]

@@ -194,7 +194,10 @@ def cache_specs(cache_shape: Any, mesh, global_batch: int):
 
     Normal decode: batch over DP and the KV *sequence* over 'model' —
     flash-decode parallelism: every model-shard reads 1/TP of the context
-    and the softmax combines across shards.  Long-context
+    and the softmax combines across shards (``ctx.decode_on_seq_shards``:
+    a max and one sum over the sequence's mesh dims, B·H·(hd + 2)
+    numbers a layer, whatever the length; ``ctx.write_rows`` writes each
+    new row into the shard that holds its position).  Long-context
     (global_batch < |dp|): the sequence shards over 'data' too.
     """
     info = mesh_info(mesh)

@@ -9,7 +9,13 @@ per rank; ranks 0-3 write what the test compares to ``out_dir``.
 a (4, 2) mesh: the Mamba2 block's scan and its one-step update on each
 rank's (batch, head) shards (``ctx.per_shard_bh``), and the gradients of
 a vocab-parallel embedding table and a whole weight (``ctx.embedding``,
-``ctx.matmul``).  No JAX here."""
+``ctx.matmul``).
+
+``run_decode`` is one rank of ``tests/test_torch_decode_mesh.py``'s world
+under a (4, 2) mesh: decode attention on each rank's slice of a
+sequence-sharded KV cache (``ctx.decode_on_seq_shards``) and the cache
+write on each rank's shard (``ctx.write_rows``), on both placements
+``cache_specs`` gives.  No JAX here."""
 
 import os
 
@@ -200,6 +206,76 @@ def run_ssm(rank: int, world: int, store_dir: str, out_dir: str) -> None:
             out[f"{k}_placements"] = np.array([str(p) for p in v.placements])
         out["state_local"] = got["state"].detach().to_local().numpy()
         np.savez(os.path.join(out_dir, f"ssm_rank{rank}.npz"), **out)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+# the decode attention's batch, cache length, kv heads, query heads, head
+# dim; lengths with keys on one side of a shard edge only (S splits 8 / 8
+# over 'model', 2 a rank over both axes), and windows: none, and 5, which
+# cuts across the edges
+DB, DS, DKV, DH, DHD = 8, 16, 2, 4, 8
+DECODE_LENGTHS = (1, 3, 8, 9, 16, 5, 12, 2)
+DECODE_WINDOWS = (0, 5)
+#: (name, the cache dim that 'data' and 'model' shard): normal decode (B
+#: over 'data', S over 'model'), long context (S over both, B whole)
+DECODE_PLACEMENTS = (("batch", (0, 1)), ("long", (1, 1)))
+
+
+def decode_inputs():
+    """q (DB, DH, DHD), k and v caches (DB, DS, DKV, DHD), the values a
+    write puts at each row's position (DB, DKV, DHD) and the lengths."""
+    rng = np.random.default_rng(7)
+    q, k, v, new = (rng.normal(size=shape).astype(np.float32) for shape in (
+        (DB, DH, DHD), (DB, DS, DKV, DHD), (DB, DS, DKV, DHD),
+        (DB, DKV, DHD)))
+    return q, k, v, new, np.array(DECODE_LENGTHS, dtype=np.int64)
+
+
+def run_decode(rank: int, world: int, store_dir: str, out_dir: str) -> None:
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from repro_torch.models.layers import decode_attention_plain
+    from repro_torch.parallel import ctx as pctx
+
+    store = dist.FileStore(os.path.join(store_dir, "store"), world)
+    dist.init_process_group("gloo", store=store, rank=rank, world_size=world)
+    try:
+        mesh = init_device_mesh("cpu", (4, 2),
+                                mesh_dim_names=("data", "model"))
+        q, k, v, new, lengths = (torch.from_numpy(a) for a in decode_inputs())
+        out = {}
+        pctx.configure(mesh)
+        try:
+            for name, dims in DECODE_PLACEMENTS:
+                pl = tuple(Shard(d) for d in dims)
+                rows = tuple(Shard(0) if p.is_shard(0) else Replicate()
+                             for p in pl)
+                # the query's heads over 'model', as the dry-run's arrive
+                q_pl = (rows[0], Shard(1))
+                kc, vc = (distribute_tensor(t, mesh, pl) for t in (k, v))
+                for w in DECODE_WINDOWS:
+                    got = decode_attention_plain(
+                        distribute_tensor(q, mesh, q_pl), kc, vc,
+                        distribute_tensor(lengths, mesh, rows), window=w)
+                    out[f"{name}_w{w}"] = got.full_tensor().numpy()
+                    out[f"{name}_w{w}_placements"] = np.array(
+                        [str(p) for p in got.placements])
+                # each row's write lands at its last key, then at the
+                # next decode step's slot (a full row's wraps to 0): both
+                # sides of every shard edge are written
+                for tag, pos in (("last", lengths - 1),
+                                 ("next", lengths % DS)):
+                    pctx.write_rows(kc, torch.arange(DB),
+                                    distribute_tensor(pos, mesh, rows),
+                                    distribute_tensor(new, mesh, rows))
+                    out[f"{name}_write_{tag}"] = kc.full_tensor().numpy()
+                out[f"{name}_cache_placements"] = np.array(
+                    [str(p) for p in kc.placements])
+        finally:
+            pctx.disable()
+        np.savez(os.path.join(out_dir, f"decode_rank{rank}.npz"), **out)
         dist.barrier()
     finally:
         dist.destroy_process_group()
