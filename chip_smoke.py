@@ -212,7 +212,10 @@ Phases (any failure exits non-zero and prints no result line):
      smollm-360m's and zamba2-2.7b's decode_32k at cache lengths 16384
      and 32768 (``--seq-len``), whose collective bytes must be equal
      (decode attention combines its softmax across the sequence's
-     shards); all as concurrent subprocesses on the host: each exits 0
+     shards), and zamba2-2.7b train_4k, whose collective bytes must lie
+     within 1% of the count on torch 2.13 written here (every layout of
+     the Mamba2 block is pinned, none left to DTensor's version); all as
+     concurrent subprocesses on the host: each exits 0
      with an ``ok`` row; each row's terms and wall are printed, and the
      ladder's order by bytes.
 11. The port's examples on the card, each a subprocess that zeroes the
@@ -292,18 +295,69 @@ L2_FLUSH_BYTES = 256 * 2 ** 20
 MARK_KERNEL = ("bitwise_not", "(short)")
 
 
+def profiled_calls(fn, n: int, mark) -> tuple[list[dict], int]:
+    """``fn(i)`` for i < ``n`` under ``torch.profiler``, a bitwise not of
+    the int16 buffer ``mark`` before each call and after the last: each
+    call's device time by kernel name (us) for the calls the session kept
+    whole, and the number of device events it recorded.  A session may
+    drop events (one in phase 8 kept 15 of 20 calls): a call is whole
+    when both its marks were recorded and it holds as many events as the
+    most calls do (a call that lost events holds fewer, two calls that
+    lost the mark between them more).  The marks are left out, and no
+    profiled function may launch their kernel."""
+    from collections import Counter
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(n):
+            mark.bitwise_not_()
+            fn(i)
+        mark.bitwise_not_()
+        torch.cuda.synchronize()
+    events = sorted((e.time_range.start, e.name, e.time_range.elapsed_us())
+                    for e in prof.events()
+                    if e.device_type == DeviceType.CUDA)
+    calls, current = [], None           # each call: its events by kernel
+    for _, kernel, us in events:
+        if all(part in kernel for part in MARK_KERNEL):
+            if current is not None:
+                calls.append(current)
+            current = []
+        elif current is not None:
+            current.append((kernel, us))
+    if len(calls) > n:
+        raise AssertionError(f"{getattr(fn, '__name__', fn)} launches the "
+                             f"marks' kernel")
+    if not calls:
+        return [], len(events)
+    usual = Counter(len(c) for c in calls).most_common(1)[0][0]
+    whole = []
+    for c in calls:
+        if len(c) == usual:
+            per: dict = {}
+            for kernel, us in c:
+                per[kernel] = per.get(kernel, 0.0) + us
+            whole.append(per)
+    return whole, len(events)
+
+
+def per_call_ms(calls: list[dict]) -> dict:
+    """Device ms a call by kernel name, the mean over ``calls``."""
+    out: dict = {}
+    for c in calls:
+        for kernel, us in c.items():
+            out[kernel] = out.get(kernel, 0.0) + us / 1e3 / len(calls)
+    return out
+
+
 def device_ms(fn, iters: int = 20, warmup: int = 3,
               cold: bool = False) -> float:
     """Device time per call of ``fn``: the summed durations of the kernels
     (and copies) it launches, from ``torch.profiler``, over the calls the
-    profiler kept whole.  A bitwise not of an int16 buffer before each
-    call and after the last marks the calls apart (a session may drop
-    events: one in phase 8 kept 15 of 20 calls); ``cold`` makes that
-    buffer ``L2_FLUSH_BYTES``, which evicts the L2, else it is 2 bytes.
-    The marks are left out of the sum, and no timed function may launch
-    their kernel."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    profiler kept whole (``profiled_calls``); ``cold`` makes the marks'
+    buffer ``L2_FLUSH_BYTES``, which evicts the L2 before each call, else
+    it is 2 bytes."""
     mark = torch.zeros((L2_FLUSH_BYTES if cold else 2) // 2,
                        dtype=torch.int16, device="cuda")
     for _ in range(warmup):
@@ -313,33 +367,14 @@ def device_ms(fn, iters: int = 20, warmup: int = 3,
     # a profiler session now and then records no device event at all
     # (seen once in phase 2 on an H100); such a session is taken again
     for attempt in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                mark.bitwise_not_()
-                fn()
-            mark.bitwise_not_()
-            torch.cuda.synchronize()
-        events = sorted((e.time_range.start, e.name, e.time_range.elapsed_us())
-                        for e in prof.events()
-                        if e.device_type == DeviceType.CUDA)
-        calls, current = [], None      # each call: the us between two marks
-        for _, kernel, us in events:
-            if all(part in kernel for part in MARK_KERNEL):
-                if current is not None:
-                    calls.append(current)
-                current = 0.0
-            elif current is not None:
-                current += us
-        if len(calls) > iters:
-            raise AssertionError(f"{name} launches the marks' kernel")
+        calls, n_events = profiled_calls(lambda i: fn(), iters, mark)
         if calls:
             if len(calls) < iters:
                 log(f"  (the profiler kept {len(calls)} of {iters} calls of "
                     f"{name} whole)")
-            return sum(calls) / len(calls) / 1e3
+            return sum(per_call_ms(calls).values())
         log(f"  (profiler session {attempt + 1} of {name} recorded "
-            f"{len(events)} device events and no whole call; taken again)")
+            f"{n_events} device events and no whole call; taken again)")
     raise AssertionError(f"the profiler recorded no whole call of {name}")
 
 
@@ -1962,7 +1997,8 @@ def family_phase(smi: str) -> dict:
         p = r["profile"]
         busy = ("not measured" if p["busy_ms"] is None else
                 f"{p['busy_ms']:.3f} ms busy of {p['wall_ms']:.3f} ms "
-                f"({p['busy_ms'] / p['wall_ms']:.3f})")
+                f"({p['busy_ms'] / p['wall_ms']:.3f}; {p['kept']} of "
+                f"{p['steps']} profiled steps kept whole)")
         log(f"    {r['arch']:26s} {r['family']:6s} {r['cut']}: weights "
             f"{r['weight_bytes'] / 1e9:.3f} GB, a step reads "
             f"{r['read_bytes'] / 1e9:.3f} GB, bound {r['bound_ms']:.3f} ms; "
@@ -2436,8 +2472,6 @@ def train_full() -> dict:
     before, read just after); the launcher's final checkpoint restores to
     the in-process state bit for bit; then 3 steps under the profiler."""
     import shutil
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch import kernels
     from repro_torch.ckpt.checkpoint import CheckpointManager
     from repro_torch.launch.train import build_trainer, parse_args
@@ -2503,14 +2537,10 @@ def train_full() -> dict:
             step(state.params, state.opt_state, tr._batch(first + i))
         torch.cuda.synchronize()
     run(1, TRAIN_STEPS)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run(TRAIN_PROFILED, TRAIN_STEPS + 1)
-    per_kernel: dict = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            per_kernel[e.name] = per_kernel.get(e.name, 0.0) + \
-                e.time_range.elapsed_us() / 1e3 / TRAIN_PROFILED
+    mark = torch.zeros((1,), dtype=torch.int16, device="cuda")
+    calls, _ = profiled_calls(
+        lambda i: run(1, TRAIN_STEPS + 1 + i), TRAIN_PROFILED, mark)
+    per_kernel = per_call_ms(calls)
     busy = sum(per_kernel.values())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]
     cfg = tr.model_cfg
@@ -2522,7 +2552,7 @@ def train_full() -> dict:
             "losses": losses, "logged": [m["step"] for m in logged],
             "leaves": len(mine), "median_ms": 1e3 * median,
             "tokens_per_s": tokens / median, "busy_ms": busy or None,
-            "top": top, "n_kernels": len(per_kernel),
+            "kept": len(calls), "top": top, "n_kernels": len(per_kernel),
             "peak": peak, "counts": counts, "steps": len(walls),
             "n_params": n_params, "n_body": n_body,
             "mfu": 6 * n_body * tokens / median / H100_BF16_FLOPS}
@@ -2609,7 +2639,8 @@ def train_phase(smi: str) -> dict:
                              f"{want}")
     busy = ("not measured" if full["busy_ms"] is None else
             f"{full['busy_ms']:.3f} ms busy a step "
-            f"({full['busy_ms'] / full['median_ms']:.3f} of the median)")
+            f"({full['busy_ms'] / full['median_ms']:.3f} of the median; "
+            f"{full['kept']} of {TRAIN_PROFILED} profiled steps kept whole)")
     log(f"  smollm-360m at full width ({full['n_params'] / 1e6:.1f} M "
         f"parameters, remat on), {' '.join(TRAIN_ARGV)}: the launcher "
         f"exited 0 in {full['sub_s']:.1f} s, losses at steps "
@@ -2656,6 +2687,13 @@ DRYRUN_CELLS = (("smollm-360m", "decode_32k"), ("llama3-8b", "train_4k"),
 #: the decode cells traced on the fake 4 x 2 mesh at two cache lengths
 #: each: a rank's collective bytes must not depend on the length
 LENGTH_CELLS, LENGTHS = ("smollm-360m", "zamba2-2.7b"), (16384, 32768)
+#: a train cell traced on the fake 4 x 2 mesh, and rank 0's collective
+#: bytes there as torch 2.13 counts them (a CPU host, ``python -m
+#: repro_torch.launch.dryrun``): ``parallel/ctx.py`` pins every layout of
+#: the Mamba2 block, so the card's host, on another torch, must count
+#: within ``VERSION_TOL`` of it
+VERSION_CELL, VERSION_BYTES, VERSION_TOL = (
+    ("zamba2-2.7b", "train_4k"), 1196375745812.0, 0.01)
 SMALL_MESH = {"DRYRUN_DEVICES": "8", "DRYRUN_MESH": "4,2"}
 #: the hillclimb cell ``launch.perf`` traces there, one process a variant
 PERF_CELL = "xlstm"
@@ -2810,8 +2848,9 @@ def counted_bounds(cfg) -> dict:
 def dryrun_cells() -> tuple[list[dict], list[dict], list[dict]]:
     """``python -m repro_torch.launch.dryrun`` on the fake 16 x 16 mesh for
     each of ``DRYRUN_CELLS``, on the fake 4 x 2 mesh for each of
-    ``LENGTH_CELLS``' decode_32k at each of ``LENGTHS`` (``--seq-len``),
-    and ``python -m repro_torch.launch.perf --cell PERF_CELL`` for each of
+    ``LENGTH_CELLS``' decode_32k at each of ``LENGTHS`` (``--seq-len``)
+    and for ``VERSION_CELL``, and ``python -m repro_torch.launch.perf
+    --cell PERF_CELL`` for each of
     its variants, as concurrent subprocesses on the host (no card): each
     exits 0, and writes ``ok`` rows; (dry-run rows, 4 x 2 rows, perf
     rows), each with its wall."""
@@ -2827,6 +2866,10 @@ def dryrun_cells() -> tuple[list[dict], list[dict], list[dict]]:
               ["repro_torch.launch.dryrun", "--arch", arch, "--shape",
                "decode_32k", "--seq-len", str(n)], SMALL_MESH)
              for arch in LENGTH_CELLS for n in LENGTHS]
+    runs.append((f"{' '.join(VERSION_CELL)} 4x2",
+                 DRYRUN_OUT / "{}.{}.4x2.jsonl".format(*VERSION_CELL),
+                 ["repro_torch.launch.dryrun", "--arch", VERSION_CELL[0],
+                  "--shape", VERSION_CELL[1]], SMALL_MESH))
     runs += [(f"perf {PERF_CELL}:{tag}",
               DRYRUN_OUT / f"perf.{PERF_CELL}.{tag}.jsonl",
               ["repro_torch.launch.perf", "--cell", PERF_CELL, "--variant",
@@ -2866,13 +2909,28 @@ def length_check(rows: list[dict]) -> dict:
     """Each of ``LENGTH_CELLS``' rank 0 collective bytes on 4 x 2, by
     cache length; the lengths must give equal bytes."""
     got = {arch: {r["seq_len"]: r["roofline"]["collective_bytes_per_chip"]
-                  for r in rows if r["arch"] == arch}
+                  for r in rows
+                  if r["arch"] == arch and r["shape"] == "decode_32k"}
            for arch in LENGTH_CELLS}
     for arch, by_len in got.items():
         if sorted(by_len) != sorted(LENGTHS) or len(set(by_len.values())) != 1:
             raise AssertionError(f"{arch} decode on 4 x 2: collective bytes "
                                  f"by cache length {by_len} differ")
     return got
+
+
+def version_check(rows: list[dict]) -> dict:
+    """``VERSION_CELL``'s row on 4 x 2: its collective bytes on this host's
+    torch within ``VERSION_TOL`` of ``VERSION_BYTES``."""
+    row = next(r for r in rows
+               if (r["arch"], r["shape"]) == VERSION_CELL)
+    got = row["roofline"]["collective_bytes_per_chip"]
+    if abs(got / VERSION_BYTES - 1) > VERSION_TOL:
+        raise AssertionError(
+            f"{' '.join(VERSION_CELL)} on 4 x 2: {got:.6e} collective bytes "
+            f"on torch {torch.__version__}, {VERSION_BYTES:.6e} on torch "
+            f"2.13: more than {VERSION_TOL:.0%} apart")
+    return row
 
 
 def parallel_phase(smi: str, measured: dict) -> dict:
@@ -2952,7 +3010,17 @@ def parallel_phase(smi: str, measured: dict) -> dict:
             f"collective bytes by cache length: " + ", ".join(
                 f"S={n} {b:.6e}" for n, b in sorted(by_len.items()))
             + " (equal)")
-    for r in sorted(small, key=lambda r: (r["arch"], r["seq_len"])):
+    vrow = version_check(small)
+    rl = vrow["roofline"]
+    log(f"      {' '.join(VERSION_CELL)} on the fake 4 x 2 mesh: rank 0's "
+        f"collective bytes {rl['collective_bytes_per_chip']:.6e} on torch "
+        f"{torch.__version__} against {VERSION_BYTES:.6e} on torch 2.13 "
+        f"({rl['collective_bytes_per_chip'] / VERSION_BYTES - 1:+.4%}, "
+        f"within {VERSION_TOL:.0%}); {rl['flops_per_chip']:.6e} FLOP; "
+        f"{rl['collectives']} in {rl['collective_counts']}; ok in "
+        f"{vrow['wall_s']:.1f} s")
+    for r in sorted((r for r in small if r is not vrow),
+                    key=lambda r: (r["arch"], r["seq_len"])):
         rl = r["roofline"]
         log(f"      {r['arch']} decode 4 x 2 S={r['seq_len']}: "
             f"{rl['flops_per_chip']:.6e} FLOP, {rl['bytes_per_chip']:.6e} "
@@ -3080,12 +3148,11 @@ def decode_step_profile(mc, params, n_steps: int = 10,
                         paged: bool = True) -> dict:
     """Device busy time of steady decode steps at the smoke's shapes: the
     wall per step with the profiler off, and the summed kernel time per
-    step from a second window under ``torch.profiler``.  ``paged``: the
-    batched step (B=8, a 1024-token page table, 38-47 keys a sequence);
-    else the one-at-a-time path's contiguous step (B=1, a ``max_len`` =
-    64 cache, 38 keys)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    step from a second window under ``torch.profiler``, over the steps
+    the session kept whole (``profiled_calls``: ``kept`` of ``steps``).
+    ``paged``: the batched step (B=8, a 1024-token page table, 38-47 keys
+    a sequence); else the one-at-a-time path's contiguous step (B=1, a
+    ``max_len`` = 64 cache, 38 keys)."""
     from repro_torch.models import transformer as T
     n0 = SYS_LEN + SUFFIX_LEN
     if paged:
@@ -3117,20 +3184,15 @@ def decode_step_profile(mc, params, n_steps: int = 10,
     t0 = time.perf_counter()
     run(n_steps)
     wall = (time.perf_counter() - t0) / n_steps     # profiler off
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run(n_steps)
-    per_kernel: dict = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            per_kernel[e.name] = per_kernel.get(e.name, 0.0) + \
-                e.time_range.elapsed_us() / 1e3 / n_steps
+    mark = torch.zeros((1,), dtype=torch.int16, device="cuda")
+    calls, _ = profiled_calls(one, n_steps, mark)
+    per_kernel = per_call_ms(calls)
     busy = sum(per_kernel.values())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
     attn = sum(ms for name, ms in per_kernel.items()
                if "decode_kernel" in name)
     return {"wall_ms": 1e3 * wall, "busy_ms": busy or None, "top": top,
-            "attention_ms": attn}
+            "attention_ms": attn, "kept": len(calls), "steps": n_steps}
 
 
 def log_profile(prof: dict, what: str, n_layers: int) -> None:
@@ -3140,7 +3202,8 @@ def log_profile(prof: dict, what: str, n_layers: int) -> None:
         return
     log(f"  {what}: wall {prof['wall_ms']:.3f} ms, device busy "
         f"{prof['busy_ms']:.3f} ms (torch.profiler), idle share "
-        f"{1 - prof['busy_ms'] / prof['wall_ms']:.3f}; attention kernel "
+        f"{1 - prof['busy_ms'] / prof['wall_ms']:.3f} ({prof['kept']} of "
+        f"{prof['steps']} profiled steps kept whole); attention kernel "
         f"{prof['attention_ms']:.4f} ms/step = "
         f"{1e3 * prof['attention_ms'] / n_layers:.2f} us/launch")
     for name, ms in prof["top"]:

@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from ..parallel import ctx as pctx
+from ..parallel import op_cost
 from .layers import mlp_apply
 
 
@@ -35,6 +36,20 @@ def moe_init(init, d_model: int, moe_cfg, lead: tuple = ()) -> dict:
     if moe_cfg.n_shared:
         params["shared"] = init.mlp(lead, d_model, f * moe_cfg.n_shared)
     return params
+
+
+def _expert_ffn(expert_in, w_gate, w_up, w_down):
+    """The experts' gated FFN over (E, G, C, D) slots.  On a mesh each
+    product contracts the rank's slice of its weight's FSDP-sharded dim, a
+    partial sum over 'data': it is summed where it is made, onto
+    ``shard_experts``' placement (one all-reduce), before the SiLU, which
+    would leave the reduction to DTensor's version."""
+    h = pctx.shard_experts(
+        F.silu(pctx.shard_experts(
+            pctx.einsum("egcd,edf->egcf", expert_in, w_gate)))
+        * pctx.shard_experts(pctx.einsum("egcd,edf->egcf", expert_in, w_up)))
+    return pctx.shard_experts(
+        pctx.einsum("egcf,efd->egcd", h, w_down))                  # (E,G,C,D)
 
 
 def moe_apply(p, x, moe_cfg):
@@ -81,11 +96,8 @@ def moe_apply(p, x, moe_cfg):
     # the all-to-alls)
     expert_in = pctx.shard_experts(
         pctx.einsum("gsec,gsd->egcd", dispatch, xs))               # (E,G,C,D)
-    h = pctx.shard_experts(
-        F.silu(pctx.einsum("egcd,edf->egcf", expert_in, p["w_gate"]))
-        * pctx.einsum("egcd,edf->egcf", expert_in, p["w_up"]))
-    expert_out = pctx.shard_experts(
-        pctx.einsum("egcf,efd->egcd", h, p["w_down"]))             # (E,G,C,D)
+    expert_out = op_cost.region("experts", _expert_ffn, expert_in,
+                                p["w_gate"], p["w_up"], p["w_down"])
     out = pctx.shard_batch_seq(
         pctx.einsum("gsec,egcd->gsd", combine.to(x.dtype), expert_out))
 

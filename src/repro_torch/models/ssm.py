@@ -10,6 +10,7 @@ gated RMSNorm stays plain PyTorch, as it is jnp in the JAX block.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -108,6 +109,42 @@ def _scan(state, xh, bh, ch, dt, decay, ck: int):
                           decay, ck)
 
 
+def _mix(head_d: int, chunk: int, dtype, state, z, xs, b, c, dt,
+         conv_state, conv_w, a_log, dt_bias, d_skip, norm_scale, *, mean):
+    """The block between its two products, each op on its own channels
+    but for ``mean`` (over d_inner): the causal conv, the scan and the
+    gated RMSNorm.  Returns (state, y (B, S, d_inner), new conv state)."""
+    bsz, s = xs.shape[0], xs.shape[1]
+    n_heads = dt.shape[-1]
+    cw = conv_w.shape[0]
+
+    # short causal conv over the sequence (depthwise)
+    xs_pad = torch.cat([conv_state, xs], dim=1)
+    new_conv_state = xs_pad[:, -(cw - 1):] if cw > 1 else conv_state
+    idx = torch.arange(s, device=xs.device)[:, None] \
+        + torch.arange(cw, device=xs.device)[None, :]
+    windows = pctx.take_seq(xs_pad, idx)                      # (B, S, cw, d_inner)
+    xs = F.silu(torch.einsum("bscd,cd->bsd", windows, conv_w))
+
+    xh = pctx.reshape(xs, (bsz, s, n_heads, head_d))
+    n = b.shape[-1] // n_heads
+    bh = pctx.reshape(b, (bsz, s, n_heads, n)).float()
+    ch = pctx.reshape(c, (bsz, s, n_heads, n)).float()
+    dt = F.softplus(dt.float() + dt_bias)                         # (B,S,H)
+    decay = torch.exp(-torch.exp(a_log)[None, None] * dt)         # (B,S,H)
+
+    # each rank's (batch, head) shards, as GSPMD runs the scan
+    y, state = pctx.per_shard_bh(_scan, state, xh, bh, ch, dt, decay, chunk)
+
+    y = y + d_skip[None, None, :, None] * xh.float()
+    y = pctx.reshape(y, (bsz, s, xs.shape[-1])).to(dtype)
+    # gated RMSNorm (Mamba2)
+    yf = y.float() * F.silu(z.float())
+    var = mean(yf * yf)
+    y = (yf * torch.rsqrt(var + 1e-5)).to(dtype) * norm_scale
+    return state, y, new_conv_state
+
+
 def mamba2_apply(p, x, ssm_cfg, state=None, conv_state=None):
     """x: (B, S, D).  state: (B, H, hd, N) f32 carried across calls
     (decode); conv_state: (B, conv_width - 1, d_inner).
@@ -119,39 +156,21 @@ def mamba2_apply(p, x, ssm_cfg, state=None, conv_state=None):
     cw = ssm_cfg.conv_width
 
     proj = pctx.shard_ffn(pctx.matmul(x, p["in_proj"]["w"]))
-    z, xs, b, c, dt = torch.split(
-        proj, [d_inner, d_inner, n_heads * n, n_heads * n, n_heads], dim=-1)
-
-    # short causal conv over the sequence (depthwise)
+    # z, x, B, C, dt, each split over 'model' on its own width
+    parts = pctx.split_channels(
+        proj, [d_inner, d_inner, n_heads * n, n_heads * n, n_heads])
     if conv_state is None:
-        conv_state = torch.zeros((bsz, cw - 1, d_inner), dtype=xs.dtype,
+        conv_state = torch.zeros((bsz, cw - 1, d_inner), dtype=proj.dtype,
                                  device=x.device)
-    xs_pad = torch.cat([conv_state, xs], dim=1)
-    new_conv_state = xs_pad[:, -(cw - 1):] if cw > 1 else conv_state
-    idx = torch.arange(s, device=x.device)[:, None] \
-        + torch.arange(cw, device=x.device)[None, :]
-    windows = pctx.take_seq(xs_pad, idx)                      # (B, S, cw, d_inner)
-    xs = F.silu(torch.einsum("bscd,cd->bsd", windows, p["conv_w"]))
-
-    xh = pctx.reshape(xs, (bsz, s, n_heads, head_d))
-    bh = pctx.reshape(b, (bsz, s, n_heads, n)).float()
-    ch = pctx.reshape(c, (bsz, s, n_heads, n)).float()
-    dt = F.softplus(dt.float() + p["dt_bias"])                    # (B,S,H)
-    decay = torch.exp(-torch.exp(p["a_log"])[None, None] * dt)    # (B,S,H)
-
     if state is None:
         state = torch.zeros((bsz, n_heads, head_d, n), dtype=torch.float32,
                             device=x.device)
-    # each rank's (batch, head) shards, as GSPMD runs the scan
-    y, state = pctx.per_shard_bh(_scan, state, xh, bh, ch, dt, decay,
-                                 ssm_cfg.chunk)
-
-    y = y + p["d_skip"][None, None, :, None] * xh.float()
-    y = pctx.reshape(y, (bsz, s, d_inner)).to(x.dtype)
-    # gated RMSNorm (Mamba2)
-    yf = y.float() * F.silu(z.float())
-    var = torch.mean(yf * yf, dim=-1, keepdim=True)
-    y = (yf * torch.rsqrt(var + 1e-5)).to(x.dtype) * p["norm_scale"]
+    # each rank's shards of the batch and of d_inner (its heads), as
+    # GSPMD runs the block: one all-reduce of the mean square each way
+    state, y, new_conv_state = pctx.per_shard_channels(
+        functools.partial(_mix, head_d, ssm_cfg.chunk, x.dtype), state,
+        *parts, conv_state, weights=(p["conv_w"], p["a_log"], p["dt_bias"],
+                                     p["d_skip"], p["norm_scale"]))
     # the output projection's partial sum over 'model' summed here, as
     # the attention's and the MLP's are (see ``layers.attention_apply``)
     return (pctx.shard_hidden(pctx.matmul(y, p["out_proj"]["w"])), state,

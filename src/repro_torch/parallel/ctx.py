@@ -20,9 +20,11 @@ on each rank's shards, ``decode_on_seq_shards``, which runs decode
 attention on each rank's slice of a sequence-sharded cache and combines
 the softmax across the slices, ``per_shard_rows``, which runs the xLSTM
 scans on each rank's rows, ``per_shard_bh``, which runs the Mamba2 scan
-on each rank's (batch, head) shards, ``take_seq``, the causal conv's
-gather of windows, and ``logsigmoid``, whose backward DTensor has no
-rule for.
+on each rank's (batch, head) shards, ``split_channels``, which brings
+each part of a joined projection to its own split, ``per_shard_channels``,
+which runs the Mamba2 block between its products on each rank's shards
+of d_inner, ``take_seq``, the causal conv's gather of windows, and
+``logsigmoid``, whose backward DTensor has no rule for.
 With the context off each is the plain op.
 
 Rules:
@@ -479,6 +481,177 @@ def per_shard_bh(fn, state, *seq):
         return DTensor.from_local(o, mesh, at(head), run_check=False,
                                   shape=tuple(shape), stride=stride)
     return placed(y, 2), placed(st, 1)
+
+
+def split_channels(x, sizes):
+    """``torch.split(x, sizes, dim=-1)`` for activations whose last dim
+    joins several parts, each a channel dim of its own (the Mamba2
+    block's z, x, B, C and dt columns).  On a DTensor split on that dim
+    over one mesh dim whose size divides every part, the ranks' edges
+    fall inside parts (at zamba2-2.7b's widths on 2 ranks, 40 columns
+    into B's), and each part comes out split over that mesh dim on its
+    own width: each rank sends every column it holds to the rank whose
+    slice of a part holds it, in one all-to-all, and the backward is the
+    all-to-all back, as GSPMD reshards such a split.  Otherwise it is the
+    plain split."""
+    last = x.ndim - 1
+    if not (_STATE["on"] and _is_dtensor(x)):
+        return torch.split(x, sizes, dim=-1)
+    mesh = x.device_mesh
+    split = [m for m, p in enumerate(x.placements) if p.is_shard(last)]
+    if len(split) != 1 or any(s % mesh.size(split[0]) for s in sizes):
+        return torch.split(x, sizes, dim=-1)
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import DTensor
+    m = split[0]
+    n, me = mesh.size(m), mesh.get_local_rank(m)
+    width = x.shape[-1]
+    step = -(-width // n)                     # torch.chunk's slices
+    offsets = [sum(sizes[:i]) for i in range(len(sizes))]
+
+    def pieces(q):
+        """(columns, destination) of rank q's slice of ``x``, in order:
+        cut at the edges of every part's slices."""
+        lo, hi = min(q * step, width), min((q + 1) * step, width)
+        out = []
+        for o, s in zip(offsets, sizes):
+            w = s // n
+            for dst in range(n):
+                a, b = max(lo, o + dst * w), min(hi, o + (dst + 1) * w)
+                if a < b:
+                    out.append((b - a, dst))
+        return out
+    mine = pieces(me)
+    chunks = torch.split(x.to_local(), [c for c, _ in mine], dim=-1)
+    send = torch.cat([c for (_, dst), c in sorted(zip(mine, chunks),
+                                                  key=lambda t: t[0][1])],
+                     dim=-1)
+    sent = [sum(c for c, dst in mine if dst == q) for q in range(n)]
+    got = [sum(c for c, dst in pieces(q) if dst == me) for q in range(n)]
+    # the all-to-all splits dim 0; what rank q sends comes in q's order,
+    # so the columns arrive in the joined dim's order: the rank's slice of
+    # each part in turn
+    recv = funcol.all_to_all_single_autograd(
+        send.movedim(-1, 0).contiguous(), got, sent, (mesh, m))
+    parts = torch.split(recv.movedim(0, -1), [s // n for s in sizes],
+                        dim=-1)
+    out = []
+    for part, s in zip(parts, sizes):
+        shape = tuple(x.shape[:-1]) + (s,)
+        stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+        out.append(DTensor.from_local(part, mesh, x.placements,
+                                      run_check=False, shape=shape,
+                                      stride=stride))
+    return out
+
+
+class _SumOver(torch.autograd.Function):
+    """A rank's partial sum ``t`` summed over the mesh dims ``dims`` (a
+    DTensor ``Partial`` made ``Replicate``, one all-reduce each), both
+    ways: each rank's use of the sum gives a partial of its gradient, so
+    the backward sums the gradient alike."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, dims):
+        ctx.mesh, ctx.dims = mesh, dims
+        return _SumOver.total(t, mesh, dims)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _SumOver.total(g, ctx.mesh, ctx.dims), None, None
+
+    @staticmethod
+    def total(t, mesh, dims):
+        from torch.distributed.tensor import DTensor, Partial, Replicate
+        pl = [Partial() if m in dims else Replicate()
+              for m in range(mesh.ndim)]
+        return DTensor.from_local(t, mesh, pl, run_check=False).redistribute(
+            mesh, [Replicate()] * mesh.ndim).to_local()
+
+
+def _plain_mean(t):
+    return torch.mean(t, dim=-1, keepdim=True)
+
+
+def per_shard_channels(fn, state, *seq, weights=()):
+    """``fn(state, *seq, *weights, mean=mean)`` for a block that works on
+    each channel alone but for means over the channels (the Mamba2 block
+    between its two products: the conv, the scan and the gated RMSNorm),
+    where ``mean(t)`` is the mean of ``t`` over its last dim, all the
+    channels.  ``state`` is (B, C, ...), each tensor of ``seq`` (B, L, C,
+    ...) and each weight (..., C), C a channel dim (the heads, d_inner, or
+    the H·N columns of B and C); ``fn`` returns ``(state, *outs)``, laid
+    out as ``state`` and ``seq``.  On DTensors, where every channel dim
+    divides over the ranks that split it, each rank runs ``fn`` on its own
+    (batch, channel) shards, as GSPMD partitions such a block: the split
+    is the batch's and the channels' of the first DTensor of ``seq``;
+    every operand is brought to it (a shard of another dim gathered; an
+    operand replicated, or a plain tensor, cut to the rank's slice);
+    a weight's gradient is a partial sum over the mesh dims that split the
+    batch; ``mean`` sums the rank's partial sum over the mesh dims that
+    split the channels, B_rank·L numbers, one all-reduce each way; and
+    the results are placed as the operands were, so the gradients come in
+    on them.  Otherwise ``fn`` runs on the tensors as they are, ``mean``
+    the plain mean."""
+    lead = next((t for t in seq if _is_dtensor(t)), None)
+    if not (_STATE["on"] and lead is not None):
+        return fn(state, *seq, *weights, mean=_plain_mean)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = lead.device_mesh
+    batch = [m for m, p in enumerate(lead.placements) if p.is_shard(0)]
+    chan = [m for m, p in enumerate(lead.placements) if p.is_shard(2)]
+    n = math.prod(mesh.size(m) for m in chan)
+    if any(t.shape[d] % n for t, d in [(state, 1)] + [(t, 2) for t in seq]
+           + [(w, w.ndim - 1) for w in weights]):
+        return fn(state, *seq, *weights, mean=_plain_mean)
+    rows = _rank_range(lead.shape[0], mesh, batch)
+
+    def at(dim: int, batched: bool = True):
+        return [Shard(0) if batched and m in batch else
+                Shard(dim) if m in chan else Replicate()
+                for m in range(mesh.ndim)]
+
+    def local(t, dim: int):
+        if isinstance(t, DTensor):
+            return t.redistribute(mesh, at(dim)).to_local()
+        return t.narrow(0, *rows).narrow(
+            dim, *_rank_range(t.shape[dim], mesh, chan))
+
+    def whole(w):
+        """The rank's channels of a weight: its own channel shard, or its
+        whole tensor cut, whose gradient is then a partial sum over the
+        channels' mesh dims too."""
+        d = w.ndim - 1
+        if isinstance(w, DTensor):
+            own = [m for m, p in enumerate(w.placements) if p.is_shard(d)]
+            pl = at(d, batched=False) if own == chan else \
+                [Replicate()] * mesh.ndim
+            w = w.redistribute(mesh, pl).to_local(grad_placements=[
+                Partial() if m in batch or p.is_replicate() and m in chan
+                else p for m, p in enumerate(pl)])
+            if own == chan:
+                return w
+        return w.narrow(d, *_rank_range(w.shape[d], mesh, chan))
+
+    def mean(t):
+        part = t.sum(dim=-1, keepdim=True)
+        if chan:
+            part = _SumOver.apply(part, mesh, chan)
+        return part / (t.shape[-1] * n)
+    _STATE["on"] = False            # the shards are plain tensors
+    try:
+        out = fn(local(state, 1), *(local(t, 2) for t in seq),
+                 *(whole(w) for w in weights), mean=mean)
+    finally:
+        _STATE["on"] = True
+
+    def placed(o, dim: int):
+        shape = list(o.shape)
+        shape[0], shape[dim] = lead.shape[0], shape[dim] * n
+        stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+        return DTensor.from_local(o, mesh, at(dim), run_check=False,
+                                  shape=tuple(shape), stride=stride)
+    return (placed(out[0], 1),) + tuple(placed(o, 2) for o in out[1:])
 
 
 def take_seq(x, idx):

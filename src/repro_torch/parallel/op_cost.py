@@ -33,11 +33,12 @@ the real device, on ``meta`` tensors (the dry-run), or under DTensor.
   dispatch mode; each wrapper credits its launch here (``credit``) with
   its input-plus-output bytes and its FLOPs.  With no counter active a
   credit is one global read.
-* **Fused regions** (``region``): the flash attention and the SSD and
-  mLSTM scans.  Their ops are counted as usual, and the counter also keeps
-  ``bytes_fused``, in which a region costs only its boundary bytes (its
-  tensor arguments and results, touched once) — ``hlo_cost``'s
-  ``fuse_inner_loops``, which credits such loops with VMEM semantics.
+* **Fused regions** (``region``): the flash attention, the SSD and
+  mLSTM scans and the MoE experts' gated FFN.  Their ops are counted as
+  usual, and the counter also keeps ``bytes_fused``, in which a region
+  costs only its boundary bytes (its tensor arguments and results, touched
+  once) — ``hlo_cost``'s ``fuse_inner_loops``, which credits such loops
+  with VMEM semantics — and each region's dot FLOPs (``region_flops``).
 * **Scans** (``scan``): the xLSTM recurrences, ``lax.scan``'s counterpart.
   Under a counter made with ``trips=k`` a scan runs only its first k
   steps, so the dry-run traces a long recurrence at two trip counts and
@@ -140,6 +141,7 @@ class OpCost:
     collective_groups: dict = field(default_factory=dict)
     dot_calls: float = 0.0
     kernels: dict = field(default_factory=dict)
+    region_flops: dict = field(default_factory=dict)
 
 
 def affine(terms) -> OpCost:
@@ -152,7 +154,8 @@ def affine(terms) -> OpCost:
         for f in ("flops", "bytes_accessed", "bytes_fused",
                   "collective_bytes", "dot_calls"):
             setattr(out, f, getattr(out, f) + w * getattr(c, f))
-        for f in ("collectives", "collective_counts", "collective_groups"):
+        for f in ("collectives", "collective_counts", "collective_groups",
+                  "region_flops"):
             acc = getattr(out, f)
             for k, v in getattr(c, f).items():
                 acc[k] = acc.get(k, 0) + w * v
@@ -310,15 +313,19 @@ def record_collective(kind: str, nbytes: float, group: int) -> None:
 
 def region(name: str, fn, *args):
     """``fn(*args)``, counted as a fused region: in ``bytes_fused`` only its
-    boundary bytes (its tensor arguments and results) count."""
+    boundary bytes (its tensor arguments and results) count, and its dot
+    FLOPs are also kept under ``name`` (``region_flops``)."""
     if not _ACTIVE:
         return fn(*args)
     counter = _ACTIVE[-1]
     counter._regions += 1
+    flops = counter.cost.flops
     try:
         out = fn(*args)
     finally:
         counter._regions -= 1
+    kept = counter.cost.region_flops
+    kept[name] = kept.get(name, 0.0) + counter.cost.flops - flops
     if not counter._regions:
         counter.cost.bytes_fused += tensor_bytes(args) + tensor_bytes(out)
     return out

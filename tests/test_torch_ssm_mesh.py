@@ -13,6 +13,17 @@ einsums on DTensors at the dry-run's placements, and cumsum's backward).
   states and the gradients of the input and every weight equal the plain
   block's on the whole batch within 1e-5; the states keep their (batch,
   head) split, and each rank holds its own 2 rows and 2 heads.
+* In the same world, the weights placed as the dry-run places them
+  (``param_specs``, FSDP on): in_proj's 132 columns split 66 / 66 over
+  'model', an edge that falls 2 columns into B's block, as zamba2-2.7b's
+  20,560 columns split 10,280 / 10,280 fall 40 into B's.  The block runs
+  on each rank's shards of the batch and of d_inner
+  (``ctx.split_channels``, one all-to-all each way, and
+  ``ctx.per_shard_channels``, one all-reduce of the mean square each
+  way): both outputs, the states and the gradients of the input and
+  every weight equal the plain block's within 1e-5 in f32, not exactly
+  (the mean square and the products over FSDP shards sum in another
+  order), and each weight's gradient keeps the weight's placements.
 * In the same world, ``ctx.embedding`` of batch-sharded ids in a table
   whose rows are split over 'model', then ``ctx.matmul`` by a whole
   weight: the output and the gradients of the table and the weight equal
@@ -82,6 +93,34 @@ def test_block_on_each_ranks_shards_equals_the_plain_block(
     np.testing.assert_allclose(res["state_local"],
                                plain_block["state"][lo:lo + 2, h0:h0 + 2],
                                rtol=1e-5, atol=1e-5)
+
+
+def test_a_shard_edge_falls_inside_b():
+    """in_proj's columns (z, x, B, C, dt) at the test's widths: the
+    'model' split's edge lies inside B's block, not at a part's edge."""
+    cfg = W.ssm_cfg()
+    d_inner = cfg.expand * W.MD
+    sizes = [d_inner, d_inner, cfg.n_ssm_heads * cfg.state_dim,
+             cfg.n_ssm_heads * cfg.state_dim, cfg.n_ssm_heads]
+    edge, starts = sum(sizes) // 2, np.cumsum([0] + sizes)
+    assert (edge, starts[2], starts[3]) == (66, 64, 96)
+
+
+@pytest.mark.parametrize("rank", range(8))
+def test_block_on_the_dry_runs_placements_equals_the_plain_block(
+        ssm_gloo_results, plain_block, rank):
+    res = ssm_gloo_results[rank]
+    for k, v in plain_block.items():
+        np.testing.assert_allclose(res[f"spec_{k}"], v, rtol=1e-5, atol=1e-5,
+                                   err_msg=f"{k} rank {rank}")
+    want = {"din_proj": ["S(0)", "S(1)"], "dconv_w": ["R", "S(1)"],
+            "dnorm_scale": ["R", "S(0)"], "dout_proj": ["S(1)", "S(0)"],
+            "da_log": ["R", "R"], "ddt_bias": ["R", "R"],
+            "dd_skip": ["R", "R"]}
+    for k, pl in want.items():
+        got = [str(p).replace("Shard(dim=", "S(").replace("Replicate()", "R")
+               for p in res[f"spec_{k}_placements"]]
+        assert got == pl, k
 
 
 @pytest.mark.parametrize("rank", range(8))

@@ -6,10 +6,11 @@ under a (2, 2) one.  ``torch.multiprocessing.spawn`` runs ``run`` once
 per rank; ranks 0-3 write what the test compares to ``out_dir``.
 
 ``run_ssm`` is one rank of ``tests/test_torch_ssm_mesh.py``'s world under
-a (4, 2) mesh: the Mamba2 block's scan and its one-step update on each
-rank's (batch, head) shards (``ctx.per_shard_bh``), and the gradients of
-a vocab-parallel embedding table and a whole weight (``ctx.embedding``,
-``ctx.matmul``).
+a (4, 2) mesh: the Mamba2 block on each rank's shards of the batch and of
+d_inner (``ctx.split_channels``, ``ctx.per_shard_channels``), with the
+weights replicated and with the weights placed as the dry-run places
+them, and the gradients of a vocab-parallel embedding table and a whole
+weight (``ctx.embedding``, ``ctx.matmul``).
 
 ``run_decode`` is one rank of ``tests/test_torch_decode_mesh.py``'s world
 under a (4, 2) mesh: decode attention on each rank's slice of a
@@ -116,16 +117,19 @@ def mamba2_params():
     return ssm.mamba2_init(init, MD, ssm_cfg())
 
 
-def mamba2_block(x, gy, g1, gs, params, place=lambda t: t):
+def mamba2_block(x, gy, g1, gs, params, place=lambda t: t,
+                 place_param=None):
     """The Mamba2 block over ``x``'s first ``MS - 1`` steps (the chunked
     scan), then one decode step (S = 1) from the state and conv state it
-    leaves, each weight in f32 and placed by ``place``: both outputs, the
-    final state, and the gradients of their products with the cotangents
-    with respect to ``x`` and each weight, by name."""
+    leaves, each weight in f32 and placed by ``place_param(path, w)``
+    (``place(w)`` if None): both outputs, the final state, and the
+    gradients of their products with the cotangents with respect to ``x``
+    and each weight, by name."""
     from repro_torch.models import ssm
     cfg = ssm_cfg()
-    p = {k: ({"w": place(v["w"].float()).requires_grad_()}
-             if isinstance(v, dict) else place(v.float()).requires_grad_())
+    put = place_param or (lambda path, t: place(t))
+    p = {k: ({"w": put((k, "w"), v["w"].float()).requires_grad_()}
+             if isinstance(v, dict) else put((k,), v.float()).requires_grad_())
          for k, v in params.items()}
     xx = place(x.clone()).requires_grad_()
     y, st, conv = ssm.mamba2_apply(p, xx[:, :-1], cfg)
@@ -170,6 +174,7 @@ def run_ssm(rank: int, world: int, store_dir: str, out_dir: str) -> None:
                                           distribute_tensor)
     from torch.distributed.tensor.experimental import implicit_replication
     from repro_torch.parallel import ctx as pctx
+    from repro_torch.parallel.sharding import param_specs, to_placements
 
     store = dist.FileStore(os.path.join(store_dir, "store"), world)
     dist.init_process_group("gloo", store=store, rank=rank, world_size=world)
@@ -189,6 +194,23 @@ def run_ssm(rank: int, world: int, store_dir: str, out_dir: str) -> None:
                         t if isinstance(t, DTensor) else distribute_tensor(
                             t, mesh, rows if t.shape[0] == MB
                             else (Replicate(), Replicate()))))
+            # the weights as the dry-run places them (``param_specs``,
+            # FSDP on): in_proj's 132 columns split 66 / 66 over 'model',
+            # an edge 2 columns into B's 32 (z 32, x 32, B 32, C 32, dt 4)
+            specs = param_specs(mamba2_params(), fsdp=True, mesh=mesh)
+
+            def by_spec(path, t):
+                spec = specs
+                for k in path:
+                    spec = spec[k]
+                return distribute_tensor(t, mesh, to_placements(spec, mesh))
+            placed = mamba2_block(
+                *(torch.from_numpy(a) for a in mamba2_inputs()),
+                mamba2_params(), lambda t: (
+                    t if isinstance(t, DTensor) else distribute_tensor(
+                        t, mesh, rows if t.shape[0] == MB
+                        else (Replicate(), Replicate()))), by_spec)
+            got.update({f"spec_{k}": v for k, v in placed.items()})
             # the ids batch-sharded over 'data', the table's rows over
             # 'model' (vocab-parallel), the weight whole
             ids, table, w, g = (torch.from_numpy(a) for a in lookup_inputs())
