@@ -112,6 +112,25 @@ Phases (any failure exits non-zero and prints no result line):
    ``--autoscale success-chance --extra-planes 1`` on the card exits 0
    and reports its plane decisions.  The counters are zeroed just before
    and read just after each card run of (a) and (b).
+   4d. The disaggregated handoff and the closed-loop sessions, smollm-360m
+   at full width (phase 3's weights), every run with the counters zeroed
+   just before and read just after: (a) phase 3's 16 requests with phase
+   3's step batching (no elasticity, merging, pruning or result cache) on
+   the unified one-unit engine, then on a prefill unit and a decode unit
+   (``m0@prefill:1,m0@decode:1``): every request done, 16 ``handoff``
+   events in the control plane's trace, blocks migrated in = out > 0, the
+   decode unit's cache reused tokens (the migrated blocks were attached),
+   the prefill:decode block budgets 1:3, ``paged_decode_attention`` and
+   ``rmsnorm`` launched, and greedy tokens bitwise equal to the unified
+   run's; (b) one engine plane with that batching and the prefix cache
+   (16-token blocks) behind a ``Router``, driven by ``WorkloadDriver``
+   over 4 sessions of 4 turns (32-token opening prompts, 8-token
+   follow-ups, 4 new tokens, the launcher's tenants ``gold:1:0.5:1,
+   free:3``): every session done, the per-turn mean prefix hit depth
+   non-decreasing and > 0 at the last turn, the hit rate above that of 16
+   single-turn sessions (which hit nothing), and the same sessions with
+   the cache off give the same tokens turn by turn; (c) the phase's wall,
+   its launches and the decode unit's median decode step are printed.
 5. Every model family (the smollm weights freed first, and re-made from
    the same seed for phase 7):
    * deepseek-moe-16b at full width (28 layers, 64 experts top-6 plus 2
@@ -229,7 +248,7 @@ Phases (any failure exits non-zero and prints no result line):
    ``rmsnorm`` and 25 ``rmsnorm_bwd`` launches a step.
 9. Print tokens/s, decode-step walls, per-kernel launches and times, the
    kernel JSON line (with each kernel's back-to-back wall a call,
-   ``wall_ms``; launches summed over phases 3-8, 4b, 4c, 10 and 11), and
+   ``wall_ms``; launches summed over phases 3-8, 4b-4d, 10 and 11), and
    last the device JSON line.
 """
 
@@ -1659,6 +1678,233 @@ def router_engine_config():
         pruning=PruningConfig(initial_defer_threshold=0.1,
                               base_drop_threshold=0.05),
         max_len=ROUTER_MAX_LEN, batch_buckets=(1, 2, 4, 8))
+
+
+# ---------------------------------------------------------------------------
+# phase 4d: the disaggregated handoff and the closed-loop sessions
+# ---------------------------------------------------------------------------
+
+#: (a): one prefill unit and one decode unit of one machine type
+HANDOFF_FLEET = "m0@prefill:1,m0@decode:1"
+#: (b): the launcher's SLO tiers and vocab (``launch/serve.py``) over
+#: ``tests/test_workload.py``'s multi-turn sessions at full width
+SESSION_TENANTS = "gold:1:0.5:1,free:3"
+SESSION_USERS, SESSION_TURNS, SESSION_NEW = 4, 4, 4
+SESSION_BASE, SESSION_FOLLOWUP, SESSION_VOCAB = 32, 8, 250
+
+
+def batched_config(**kw):
+    """Phase 3's step batching (``max_batch`` 8, budget 64, page 16,
+    ``max_len`` 1024) on one unit, with no elasticity, merging, pruning
+    or result cache (``tests/test_disaggregation.py``'s live settings)."""
+    from repro_torch.serving.batching import StepBatchingConfig
+    from repro_torch.serving.engine import EngineConfig
+    kw = {"n_units": 1, "elasticity": None, "merging": "none",
+          "pruning": None, "result_cache": False, "max_len": 1024,
+          "kv_block_size": 16, **kw}
+    return EngineConfig(batching=StepBatchingConfig(max_batch=8,
+                                                    step_token_budget=64),
+                        **kw)
+
+
+def serve_handoff(mc, params) -> dict:
+    """(a) Phase 3's 16 requests on the unified one-unit engine, then on
+    a prefill unit and a decode unit: every request done, one handoff
+    each, the migrated blocks attached on the decode unit, the 1:3 block
+    budgets, the kernels launched, and greedy tokens bitwise equal."""
+    from repro_torch import kernels
+    from repro_torch.core.fleet import FleetSpec
+    from repro_torch.serving.engine import ServingEngine
+    runs = {}
+    for name, fleet in (("unified", None), ("disaggregated", HANDOFF_FLEET)):
+        eng = ServingEngine(mc, params, batched_config(
+            fleet=FleetSpec.parse(fleet) if fleet else None), device="cuda")
+        eng.cp.trace = []
+        trace = make_requests(mc.vocab, 0.0, 600.0)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        stats = eng.run(trace)
+        torch.cuda.synchronize()
+        runs[name] = {"eng": eng, "stats": stats,
+                      "wall_s": time.perf_counter() - t0,
+                      "counts": kernels.launch_counts(),
+                      "reqs": [r for _, r in trace]}
+    uni, dis = runs["unified"], runs["disaggregated"]
+    for name, run in runs.items():
+        for r in run["reqs"]:
+            if r.status != "done" or len(r.tokens) != N_NEW:
+                raise AssertionError(
+                    f"phase 4d (a) {name}: request {r.rid} ended as "
+                    f"{r.status} with {len(r.tokens)} tokens, want done "
+                    f"with {N_NEW}")
+        for k in ("paged_decode_attention", "rmsnorm"):
+            if run["counts"][k] == 0:
+                raise AssertionError(f"phase 4d (a) {name}: {k} was never "
+                                     f"launched")
+    eng = dis["eng"]
+    handoffs = sum(e[0] == "handoff" for e in eng.cp.trace)
+    if handoffs != N_REQ:
+        raise AssertionError(f"phase 4d (a): {handoffs} handoffs in the "
+                             f"control plane's trace, want {N_REQ}")
+    mids = {m.phase: m.mid for m in eng.machines}
+    src, dst = eng.kvcaches[mids["prefill"]], eng.kvcaches[mids["decode"]]
+    moved = (src.stats["migrated_out"], dst.stats["migrated_in"])
+    if not moved[0] > 0 or moved[0] != moved[1]:
+        raise AssertionError(f"phase 4d (a): blocks migrated out / in "
+                             f"{moved}, want equal and > 0")
+    if not dst.stats["tokens_reused"] > 0:
+        raise AssertionError("phase 4d (a): the decode unit attached no "
+                             "migrated block")
+    budgets = (src.pool.n_blocks, dst.pool.n_blocks)
+    if budgets[0] * 3 != budgets[1]:
+        raise AssertionError(f"phase 4d (a): prefill / decode block "
+                             f"budgets {budgets}, want 1:3")
+    parted = [(r.rid, a.tokens, r.tokens)
+              for a, r in zip(uni["reqs"], dis["reqs"])
+              if a.tokens != r.tokens]
+    if parted:
+        raise AssertionError(
+            f"phase 4d (a): {len(parted)} of {N_REQ} requests part from "
+            f"the unified run (rid, unified, disaggregated): {parted}")
+    walls = eng._runners[mids["decode"]].decode_walls
+    return {"handoffs": handoffs, "migrated": moved[0],
+            "tokens_reused": dst.stats["tokens_reused"],
+            "budgets": budgets, "decode_steps": len(walls),
+            "median_decode_step_ms": 1e3 * statistics.median(walls),
+            "wall_s": {k: run["wall_s"] for k, run in runs.items()},
+            "counts": {k: uni["counts"][k] + dis["counts"][k]
+                       for k in uni["counts"]}}
+
+
+def run_sessions(mc, params, users: int, turns: int,
+                 prefix_cache: bool = True) -> dict:
+    """One full-width engine plane behind a ``Router``, driven by
+    ``WorkloadDriver`` over a ``SessionPool``; every submitted request
+    kept by (session, turn)."""
+    from repro_torch import kernels
+    from repro_torch.serving.cluster import Plane, Router
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.workload import (SessionConfig, SessionPool,
+                                              WorkloadDriver, parse_tenants)
+    eng = ServingEngine(mc, params, batched_config(
+        heuristic="EDF", prefix_cache=prefix_cache), device="cuda")
+    router = Router([Plane(eng, pid=0)], policy="round-robin",
+                    shared_detector=False)
+    pool = SessionPool(SessionConfig(
+        users=users, turns=turns, base_prompt=SESSION_BASE,
+        followup=SESSION_FOLLOWUP, n_new=SESSION_NEW, vocab=SESSION_VOCAB,
+        seed=SEED), tenants=parse_tenants(SESSION_TENANTS))
+    items, pop = {}, pool.pop
+
+    def recorded_pop():
+        t, item = pop()
+        items[(item.session, item.turn)] = item
+        return t, item
+
+    pool.pop = recorded_pop
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    stats = WorkloadDriver(router, pool, record_hit_depth=True).run()
+    torch.cuda.synchronize()
+    summary = pool.summary()
+    if summary["sessions_done"] != users or len(items) != users * turns:
+        raise AssertionError(f"phase 4d (b): {summary['sessions_done']} of "
+                             f"{users} sessions done, {len(items)} of "
+                             f"{users * turns} turns submitted")
+    for key, r in items.items():
+        if r.status != "done" or len(r.tokens) != SESSION_NEW:
+            raise AssertionError(f"phase 4d (b): session turn {key} ended "
+                                 f"as {r.status} with {len(r.tokens)} "
+                                 f"tokens, want done with {SESSION_NEW}")
+    return {"stats": stats, "summary": summary,
+            "wall_s": time.perf_counter() - t0,
+            "counts": kernels.launch_counts(),
+            "tokens": {k: list(r.tokens) for k, r in items.items()},
+            "hit_rate": stats["prefix_hits"] / max(1, stats["executions"])}
+
+
+def serve_sessions(mc, params) -> dict:
+    """(b) Multi-turn sessions with the prefix cache on, the single-shot
+    baseline (as many sessions of one turn), and the sessions again with
+    the cache off (``tests/test_workload.py``'s checks, at full width)."""
+    multi = run_sessions(mc, params, SESSION_USERS, SESSION_TURNS)
+    single = run_sessions(mc, params, SESSION_USERS * SESSION_TURNS, 1)
+    off = run_sessions(mc, params, SESSION_USERS, SESSION_TURNS,
+                       prefix_cache=False)
+    depths = [t["mean_hit_depth"] for t in multi["summary"]["per_turn"]]
+    if not (all(b >= a for a, b in zip(depths, depths[1:]))
+            and depths[-1] > 0):
+        raise AssertionError(f"phase 4d (b): per-turn hit depth {depths}, "
+                             f"want non-decreasing and > 0 at the last")
+    if single["stats"]["prefix_hits"] != 0 or \
+            not multi["hit_rate"] > single["hit_rate"]:
+        raise AssertionError(
+            f"phase 4d (b): hit rate multi-turn {multi['hit_rate']} vs "
+            f"single-shot {single['hit_rate']} "
+            f"({single['stats']['prefix_hits']} hits), want above a "
+            f"baseline of 0")
+    if off["stats"]["prefix_hits"] != 0:
+        raise AssertionError("phase 4d (b): the cache-off run hit a prefix")
+    parted = sorted(k for k in multi["tokens"]
+                    if multi["tokens"][k] != off["tokens"][k])
+    if parted:
+        raise AssertionError(
+            f"phase 4d (b): (session, turn) {parted} part with the prefix "
+            f"cache off: "
+            + "; ".join(f"{k} {multi['tokens'][k]} != {off['tokens'][k]}"
+                        for k in parted))
+    runs = (multi, single, off)
+    for k in ("paged_decode_attention", "rmsnorm"):
+        if any(run["counts"][k] == 0 for run in runs):
+            raise AssertionError(f"phase 4d (b): a session run never "
+                                 f"launched {k}")
+    return {"depths": depths, "hit_rate": multi["hit_rate"],
+            "single_hit_rate": single["hit_rate"],
+            "hits": multi["stats"]["prefix_hits"],
+            "reused": multi["stats"]["prefix_tokens_reused"],
+            "saved": off["stats"]["prefill_tokens"]
+            - multi["stats"]["prefill_tokens"],
+            "prefill_tokens": multi["stats"]["prefill_tokens"],
+            "turns": len(multi["tokens"]),
+            "tenants": multi["summary"]["tenants"],
+            "wall_s": [run["wall_s"] for run in runs],
+            "counts": {k: sum(run["counts"][k] for run in runs)
+                       for k in multi["counts"]}}
+
+
+def handoff_phase(mc, params, smi: str) -> dict:
+    """Phase 4d: (a) the handoff, (b) the sessions, (c) their launches."""
+    t0 = time.perf_counter()
+    ho = serve_handoff(mc, params)
+    log(f"phase 4d: the disaggregated handoff and the closed-loop "
+        f"sessions, smollm-360m at full width ({smi})")
+    log(f"  (a) {N_REQ} requests on {HANDOFF_FLEET}: {N_REQ} done, "
+        f"{ho['handoffs']} handoffs, {ho['migrated']} blocks migrated out "
+        f"= in, {ho['tokens_reused']} tokens reused on the decode unit, "
+        f"block budgets prefill:decode {ho['budgets'][0]}:"
+        f"{ho['budgets'][1]}; greedy tokens bitwise equal to the unified "
+        f"run on all {N_REQ}; walls unified {ho['wall_s']['unified']:.3f} "
+        f"s, disaggregated {ho['wall_s']['disaggregated']:.3f} s; decode "
+        f"unit's median decode step {ho['median_decode_step_ms']:.3f} ms "
+        f"over {ho['decode_steps']} steps")
+    se = serve_sessions(mc, params)
+    log(f"  (b) {SESSION_USERS} sessions x {SESSION_TURNS} turns, tenants "
+        f"{SESSION_TENANTS}: per-turn mean hit depth {se['depths']}; hit "
+        f"rate {se['hit_rate']:.4f} ({se['hits']} hits, {se['reused']} "
+        f"tokens reused) against the single-shot baseline's "
+        f"{se['single_hit_rate']:.4f}; prefill tokens {se['prefill_tokens']}"
+        f", {se['saved']} saved against the cache-off run, whose tokens "
+        f"equal on all {se['turns']} turns; walls (multi-turn, single-shot,"
+        f" cache off) {', '.join(f'{w:.3f}' for w in se['wall_s'])} s")
+    for name, row in sorted(se["tenants"].items()):
+        log(f"    tenant {name}: {row}")
+    counts = {k: ho["counts"][k] + se["counts"][k] for k in ho["counts"]}
+    wall = time.perf_counter() - t0
+    log(f"  (c) phase 4d took {wall:.1f} s with its engines' set-up; "
+        f"kernel launches (a) {ho['counts']}, (b) {se['counts']}")
+    return {"handoff": ho, "sessions": se, "counts": counts, "wall_s": wall}
 
 
 # ---------------------------------------------------------------------------
@@ -3370,6 +3616,8 @@ def main() -> int:
     log(f"  main-path kernel launches (a) and (b) on the card: "
         f"{sc['counts']}")
 
+    hp = handoff_phase(mc, params, smi)
+
     # the smollm weights make way for the full-width families, and come
     # back (the same seed) for the calibration row
     del params
@@ -3463,6 +3711,14 @@ def main() -> int:
         f"{rr['counts']['decode_attention']} = {mc.n_layers} x "
         f"{rr['decode_calls']}")
     log(f"  main-path kernel launches: {rr['counts']}")
+    ho, se = hp["handoff"], hp["sessions"]
+    log(f"  handoff (phase 4d (a)): {ho['handoffs']} handoffs, greedy "
+        f"tokens equal to the unified run on {N_REQ} requests, decode "
+        f"unit's median decode step {ho['median_decode_step_ms']:.3f} ms; "
+        f"sessions (b): hit rate {se['hit_rate']:.4f} against "
+        f"{se['single_hit_rate']:.4f}, cache-off tokens equal on "
+        f"{se['turns']} turns; phase 4d {hp['wall_s']:.1f} s, launches "
+        f"{hp['counts']}")
     moe = fam["moe"]
     log(f"  {MOE_ARCH} behind the Router: completed {moe['completed']} of "
         f"{FAMILY_REQ}, tokens/s {moe['tokens_per_s']:.2f}, median decode "
@@ -3471,7 +3727,7 @@ def main() -> int:
     for r in rows:
         r["launches"] = sum(c[r["name"]] for c in (
             res["counts"], rr["counts"], wr["counts"], sc["counts"],
-            moe["counts"],
+            hp["counts"], moe["counts"],
             cal["counts"], train["full"]["counts"], par["counts"],
             ex["counts"]))
         r.pop("shape")

@@ -484,13 +484,17 @@ class _UnitRunner:
         first = cont.get("first") if cont is not None else None
         ptoks = tuple(reqs[0].prompt) if reqs else ()
         n_new = max((r.n_new for r in reqs), default=0)
-        if first is not None:
-            # decode continuation after a prefill-plane handoff (§2.13):
-            # the boundary token extends the prompt and the remaining
-            # decode budget runs here, attaching the migrated KV blocks
-            # through the normal cached-prefill path below
-            ptoks = ptoks + (first,)
-            n_new -= 1
+        # A decode continuation after a prefill-plane handoff (§2.13) keeps
+        # the sequence's own dimensions: the migrated KV blocks attach
+        # through the cached-prefill path below, the prompt's remainder is
+        # prefilled at the one chunk shape, and the boundary token the
+        # prefill unit picked (``first``) stands for that chunk's pick, so
+        # the first decode step feeds it.  Its K/V and the next logits then
+        # come from the paged decode step at ``max_batch`` rows, as in a
+        # unified run.  The JAX engine appends the boundary token to the
+        # prompt and prefills it in a chunk instead; on the card a chunk
+        # and the decode kernel sum in different orders, so that route
+        # would part the tokens from the unified run's.
         prompt = np.asarray(ptoks, np.int32)
         plen = len(prompt)
         if (not self._batchable(reqs)
@@ -539,8 +543,7 @@ class _UnitRunner:
         self.states[id(seq)] = {
             "prompt": prompt, "ptoks": ptoks, "tab": tab,
             "pids": pids, "hit": hit, "k": ks, "v": vs,
-            "out": [], "cur": -1, "len": 0,
-            "pre": [first] if first is not None else []}
+            "out": [], "cur": -1, "len": 0, "first": first}
         ub.join(seq, now)
 
     def release(self, seq: SeqState | None) -> None:
@@ -579,8 +582,10 @@ class _UnitRunner:
             if s.prefill_done + c >= s.plen:
                 # final chunk: its last-position logits yield the first new
                 # token (what the sequential prefill's argmax produces) and
-                # the accumulated KV commits to this sequence's pages
-                st["cur"] = int(torch.argmax(logits[0]))
+                # the accumulated KV commits to this sequence's pages; a
+                # continuation's first new token is the boundary token
+                st["cur"] = (st["first"] if st["first"] is not None
+                             else int(torch.argmax(logits[0])))
                 st["out"].append(st["cur"])
                 self._commit(s, st)
             vc += c * self.rp * self._ticks
@@ -642,11 +647,8 @@ class _UnitRunner:
         if st is None:
             return      # exclusive: ``execute`` already wrote the results
         eng = self.eng
-        # a continuation carries the boundary token produced on the prefill
-        # plane; the full output is that token plus this plane's decodes
-        out = st.get("pre", []) + st["out"]
         for r in eng._inflight.get(s.task.tid, []):
-            r.tokens = list(out[:r.n_new])
+            r.tokens = list(st["out"][:r.n_new])
         cache = eng.kvcaches.get(self.m.mid)
         if cache is not None and s.plen > 1 \
                 and s.plen <= eng.cfg.prefix_max_prompt:
@@ -1144,7 +1146,8 @@ class ServingEngine(Substrate):
         the source unit's arena-backed cache to the destination's.  The
         payloads are host arrays owned by the blocks, so migration moves
         references; the destination runner re-attaches them through its
-        normal lookup→gather→cached-prefill path."""
+        normal lookup→gather→cached-prefill path and feeds the boundary
+        token to its first decode step (``_UnitRunner.join``)."""
         self._handoff_pending.pop(task.tid, None)
         _, n_new = task_dims(task, self.cfg.batching)
         reqs = self._inflight.get(task.tid, [])

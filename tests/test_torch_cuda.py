@@ -12,7 +12,8 @@ of their split-key algorithm, on the same inputs cast to f32, at lengths
 that cross its granule and rank boundaries and at one shape for every
 (query rows, head-dim capacity) the kernels are built for (atol 1e-4 /
 rtol 4e-3: the kernels round their output to bf16); the engine's batched
-greedy tokens must equal its one-at-a-time tokens through the kernels, and
+greedy tokens must equal its one-at-a-time tokens through the kernels, a
+prefill unit and a decode unit must give the unified engine's tokens, and
 the one-at-a-time path behind the Router keeps its tokens with the prefix
 cache on or off.  The contiguous kernel under a sliding window is held to
 the windowed split model at every instantiation and to the layer's
@@ -812,6 +813,40 @@ def test_engine_batched_equals_one_at_a_time(cuda):
         counts = launch_counts()
         assert counts["paged_decode_attention"] > 0 and counts["rmsnorm"] > 0
         tokens.append([r.tokens for r in reqs])
+    assert tokens[0] == tokens[1]
+
+
+def test_engine_disaggregated_equals_unified(cuda):
+    """A prefill unit and a decode unit hand every sequence off, the KV
+    blocks migrate, and the greedy tokens equal the unified one-unit run
+    through the kernels."""
+    cfg = get_arch("smollm-360m").reduced()
+    params = T.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                           cuda)
+    rng = np.random.default_rng(7)
+    prompts = [tuple(int(x) for x in rng.integers(1, cfg.vocab,
+                                                   rng.integers(4, 60)))
+               for _ in range(8)]
+    bat = StepBatchingConfig(max_batch=4, step_token_budget=16)
+    tokens = []
+    for fleet in (None, FleetSpec.parse("m0@prefill:1,m0@decode:1")):
+        eng = ServingEngine(cfg, params, EngineConfig(
+            n_units=1, fleet=fleet, elasticity=None, merging="none",
+            pruning=None, result_cache=False, max_len=96, batching=bat),
+            device=cuda)
+        eng.cp.trace = []
+        reqs = [Request(prompt=p, n_new=6, deadline=1e9) for p in prompts]
+        reset_launch_counts()
+        assert eng.run([(float(i), r) for i, r in
+                        enumerate(reqs)])["completed"] == len(prompts)
+        counts = launch_counts()
+        assert counts["paged_decode_attention"] > 0 and counts["rmsnorm"] > 0
+        tokens.append([r.tokens for r in reqs])
+    assert sum(e[0] == "handoff" for e in eng.cp.trace) == len(prompts)
+    phases = {m.phase: m.mid for m in eng.machines}
+    src, dst = (eng.kvcaches[phases[k]] for k in ("prefill", "decode"))
+    assert dst.stats["migrated_in"] == src.stats["migrated_out"] > 0
+    assert dst.stats["tokens_reused"] > 0
     assert tokens[0] == tokens[1]
 
 
