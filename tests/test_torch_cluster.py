@@ -5,9 +5,11 @@
   policy (the twin of ``tests/test_cluster.py``'s single-plane oracle).
 * Port and JAX routers over stub planes take the same routing and control
   decisions.
-* The port's ``Simulator`` yields the JAX ``Simulator``'s decision trace on
-  the same ``PETMatrix`` draws and trace, and the port's stub engine yields
-  the port ``Simulator``'s (the twin of ``tests/test_controlplane.py``).
+* The port's ``Simulator`` and stub engine yield the JAX ``Simulator``'s
+  decision trace on the same ``PETMatrix`` draws and trace, for three
+  policies on 4- and 5-prompt traces (on 5, the twin of
+  ``tests/test_controlplane.py``'s
+  ``test_same_trace_same_oracle_same_decisions``).
 * Live 2-plane routers of both packages serve a tiny model with bridged
   weights: the same routing decisions, the same per-plane counters and
   the same greedy tokens up to a near-tie of the logits.
@@ -21,97 +23,31 @@ import pytest
 import torch
 
 from repro.configs.registry import ARCHS as JAX_ARCHS
-from repro.core.fleet import FleetSpec as JaxFleetSpec
-from repro.core.pruning import PruningConfig as JaxPruningConfig
-from repro.core.simulation import PETOracle as JaxPETOracle
-from repro.core.simulation import SimConfig as JaxSimConfig
-from repro.core.simulation import Simulator as JaxSimulator
-from repro.core.tasks import PETMatrix as JaxPETMatrix
-from repro.core.tasks import Task as JaxTask
 from repro.models import transformer as JT
-from repro.serving.cluster import Router as JaxRouter
 from repro.serving.cluster import make_engine_planes as jax_engine_planes
-from repro.serving.engine import EngineConfig as JaxEngineConfig
-from repro.serving.engine import Request as JaxRequest
-from repro.serving.engine import ServingEngine as JaxServingEngine
 from repro_torch.bridge import params_from_jax
 from repro_torch.configs.registry import get_arch
 from repro_torch.core.fleet import FleetSpec
-from repro_torch.core.pruning import PruningConfig
-from repro_torch.core.simulation import PETOracle, SimConfig, Simulator
-from repro_torch.core.tasks import PETMatrix, Task
 from repro_torch.serving.batching import StepBatchingConfig
 from repro_torch.serving.cluster import (ROUTER_POLICIES, Plane, Router,
                                          make_engine_plane_factory,
                                          make_engine_planes)
 from repro_torch.serving.engine import EngineConfig, Request, ServingEngine
+from torch_jax_side import JAX, MSD_PRUNING, PORT
 
 TINY = dict(n_layers=1, d_model=64, n_heads=2, n_kv_heads=2, d_ff=128,
             vocab=128, head_dim=32, remat=False)
 
 
-class _Side:
-    """One package's classes, so a test body runs unchanged on both."""
-
-    def __init__(self, side: str):
-        if side == "jax":
-            self.PETMatrix, self.PETOracle = JaxPETMatrix, JaxPETOracle
-            self.Simulator, self.SimConfig = JaxSimulator, JaxSimConfig
-            self.Task, self.FleetSpec = JaxTask, JaxFleetSpec
-            self.PruningConfig = JaxPruningConfig
-            self.EngineConfig, self.Request = JaxEngineConfig, JaxRequest
-            self.ServingEngine, self.Router = JaxServingEngine, JaxRouter
-            self.extra = {}
-        else:
-            self.PETMatrix, self.PETOracle = PETMatrix, PETOracle
-            self.Simulator, self.SimConfig = Simulator, SimConfig
-            self.Task, self.FleetSpec = Task, FleetSpec
-            self.PruningConfig = PruningConfig
-            self.EngineConfig, self.Request = EngineConfig, Request
-            self.ServingEngine, self.Router = ServingEngine, Router
-            self.extra = {"device": "cpu"}
-
-    def pet(self, seed=3, mean_range=(8, 16)):
-        return self.PETMatrix.generate(["generate"], ["m0"],
-                                       np.random.default_rng(seed),
-                                       mean_range=mean_range)
-
-    def stub_engine(self, pet, n_units=2, oracle_seed=11, **cfg_kw):
-        cfg_kw.setdefault("heuristic", "EDF")
-        cfg_kw.setdefault("merging", "adaptive")
-        return self.ServingEngine(None, None, self.EngineConfig(
-            n_units=n_units, elasticity=None, result_cache=False,
-            prefix_cache=False, **cfg_kw),
-            stub_oracle=self.PETOracle(pet, seed=oracle_seed), **self.extra)
-
-    def trace(self, n=40, seed=1, n_prompts=4, deadline=200.0, gap=1.0):
-        rng = np.random.default_rng(seed)
-        prompts = [tuple(rng.integers(1, 1000, size=8).tolist())
-                   for _ in range(n_prompts)]
-        out, t = [], 0.0
-        for _ in range(n):
-            out.append((t, self.Request(
-                prompt=prompts[int(rng.integers(0, n_prompts))],
-                op="generate", n_new=int(rng.integers(1, 4)),
-                seed=int(rng.integers(0, 2)), deadline=t + deadline)))
-            t += float(rng.exponential(gap))
-        return out
-
-    def mirror_tasks(self, trace):
-        """Simulator tasks built exactly as the engine's ingest does."""
-        return [self.Task(ttype=req.op, data_id=str(hash(req.prompt)),
-                          op=req.op, params=req.params_sig, arrival=t,
-                          deadline=req.deadline, user=f"u{i % 8}",
-                          tokens=req.prompt)
-                for i, (t, req) in enumerate(trace)]
-
-
-PORT, JAX = _Side("torch"), _Side("jax")
-
-
 # ---------------------------------------------------------------------------
 # stub planes
 # ---------------------------------------------------------------------------
+
+def _trace(side, **kw):
+    """Requests over 4 prompts, due 200 ticks after arrival, one a tick."""
+    kw = {"n_prompts": 4, "deadline": 200.0, "rate": 1.0, **kw}
+    return side.request_trace(**kw)
+
 
 class TestSinglePlaneEquivalence:
     @pytest.mark.parametrize("policy", sorted(ROUTER_POLICIES))
@@ -120,12 +56,10 @@ class TestSinglePlaneEquivalence:
         bare stub engine on the same trace and oracle."""
         pet = PORT.pet()
         bare = PORT.stub_engine(pet)
-        bare.cp.trace = []
-        s_bare = bare.run(PORT.trace())
+        s_bare = bare.run(_trace(PORT))
 
         eng = PORT.stub_engine(pet)
-        eng.cp.trace = []
-        s_r = Router([Plane(eng)], policy=policy).run(PORT.trace())
+        s_r = Router([Plane(eng)], policy=policy).run(_trace(PORT))
 
         assert eng.cp.trace == bare.cp.trace
         assert (s_r["on_time"], s_r["missed"], s_r["dropped"]) == \
@@ -146,10 +80,8 @@ class TestRouterAgainstJax:
             pet = side.pet()
             engs = [side.stub_engine(pet, n_units=1, oracle_seed=11 + i)
                     for i in range(2)]
-            for e in engs:
-                e.cp.trace = []
             router = side.Router(engs, policy=policy)
-            stats = router.run(side.trace(n=48, gap=0.5))
+            stats = router.run(_trace(side, n=48, rate=2.0))
             runs.append((router.decisions, [e.cp.trace for e in engs],
                          {k: stats[k] for k in (
                              "completed", "on_time", "missed", "dropped",
@@ -169,60 +101,46 @@ EQUIV_CONFIGS = [
     dict(heuristic="FCFS-RR", merging="aggressive", position_finder="linear",
          pruning=None),
     dict(heuristic="MSD", merging="conservative", position_finder=None,
-         pruning="msd"),
+         pruning=MSD_PRUNING),
 ]
 EQUIV_IDS = ["edf-adaptive", "fcfs-aggr-pfind", "msd-conservative-pruned"]
 
 
-def _cfg_kw(side, kw):
-    kw = dict(kw)
-    if kw["pruning"] is not None:
-        kw["pruning"] = side.PruningConfig(initial_defer_threshold=0.1,
-                                           base_drop_threshold=0.05,
-                                           dynamic_defer=True)
-    return kw
-
-
-def _simulate(side, kw, trace, n_units=2):
-    sim = side.Simulator(side.mirror_tasks(trace),
-                         side.FleetSpec.homogeneous(n_units),
-                         side.PETOracle(side.pet(), seed=11),
-                         side.SimConfig(hard_deadlines=kw["pruning"]
-                                        is not None, **kw))
-    sim.cp.trace = []
-    return sim, sim.run()
+#: the 4-prompt trace of the first cases, and the 5-prompt trace of
+#: ``tests/test_controlplane.py``'s ``TestDecisionEquivalence``
+EQUIV_CASES = ([(kw, 4) for kw in EQUIV_CONFIGS]
+               + [(kw, 5) for kw in EQUIV_CONFIGS])
+EQUIV_CASE_IDS = EQUIV_IDS + [f"{i}-5prompts" for i in EQUIV_IDS]
 
 
 class TestSimulator:
-    @pytest.mark.parametrize("cfg_kw", EQUIV_CONFIGS, ids=EQUIV_IDS)
-    def test_same_decisions_as_jax_simulator(self, cfg_kw):
+    @pytest.mark.parametrize("cfg_kw,n_prompts", EQUIV_CASES,
+                             ids=EQUIV_CASE_IDS)
+    def test_same_decisions_as_jax_simulator(self, cfg_kw, n_prompts):
         out = []
         for side in (JAX, PORT):
-            sim, st = _simulate(side, _cfg_kw(side, cfg_kw),
-                                side.trace(n=40, deadline=80.0, gap=2.0))
+            sim, st = side.simulate(side.request_trace(n_prompts=n_prompts),
+                                    **cfg_kw)
             out.append((sim.cp.trace, (st.on_time, st.missed, st.dropped,
                                        st.merges, st.merge_rejected)))
         assert out[0][0], "empty decision trace"
         assert out[0] == out[1]
 
-    @pytest.mark.parametrize("cfg_kw", EQUIV_CONFIGS, ids=EQUIV_IDS)
-    def test_stub_engine_matches_simulator(self, cfg_kw):
+    @pytest.mark.parametrize("cfg_kw,n_prompts", EQUIV_CASES,
+                             ids=EQUIV_CASE_IDS)
+    def test_stub_engine_matches_simulator(self, cfg_kw, n_prompts):
         """The port's stub engine and the port's simulator take the same
         decisions on the same trace and oracle."""
-        kw = _cfg_kw(PORT, cfg_kw)
-        trace = PORT.trace(n=40, deadline=80.0, gap=2.0)
-        eng = PORT.ServingEngine(None, None, EngineConfig(
-            n_units=2, elasticity=None, result_cache=False,
-            prefix_cache=False, **kw),
-            stub_oracle=PETOracle(PORT.pet(), seed=11), device="cpu")
-        eng.cp.trace = []
-        stats = eng.run(trace)
-        sim, st = _simulate(PORT, kw, trace)
+        eng = PORT.stub_engine(**cfg_kw)
+        stats = eng.run(PORT.request_trace(n_prompts=n_prompts))
+        sim, st = PORT.simulate(PORT.request_trace(n_prompts=n_prompts),
+                                **cfg_kw)
         assert sim.cp.trace == eng.cp.trace
         assert {e[0] for e in sim.cp.trace} >= {"start", "finish"}
-        assert (st.on_time, st.missed, st.dropped, st.merges) == \
+        assert (st.on_time, st.missed, st.dropped, st.merges,
+                st.merge_rejected) == \
             (stats["on_time"], stats["missed"], stats["dropped"],
-             stats["merges"])
+             stats["merges"], stats["merge_rejected"])
         assert stats["deadlock_breaks"] == 0 == st.deadlock_breaks
 
 
@@ -289,11 +207,11 @@ class TestLivePlanes:
     def test_two_planes_match_jax(self, bridged_model):
         cfg, params, jcfg, jparams = bridged_model
         trace = _waves(Request)
-        jtrace = _waves(JaxRequest)
+        jtrace = _waves(JAX.Request)
         router = Router(make_engine_planes(cfg, params, _live_cfg(
             EngineConfig), 2, device="cpu"), policy="affinity")
-        jrouter = JaxRouter(jax_engine_planes(jcfg, jparams, _live_cfg(
-            JaxEngineConfig), 2), policy="affinity")
+        jrouter = JAX.Router(jax_engine_planes(jcfg, jparams, _live_cfg(
+            JAX.EngineConfig), 2), policy="affinity")
         s = router.run(trace)
         js = jrouter.run(jtrace)
         assert s["completed"] == js["completed"] == len(trace)

@@ -382,7 +382,8 @@ np.savez({out!r}, **{{"mean_" + k: np.asarray(v) for k, v in mean.items()}},
 @pytest.fixture(scope="module")
 def jax_results(tmp_path_factory):
     out = tmp_path_factory.mktemp("jax") / "jax.npz"
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+    # eight host devices: JAX on the CPU even where it could see a GPU
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=8")
     res = subprocess.run(
         [sys.executable, "-c", textwrap.dedent(_JAX_CODE).format(
