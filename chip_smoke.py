@@ -1153,8 +1153,6 @@ def serve(mc, params):
     for name in BATCHED_KERNELS:
         if counts[name] == 0:
             raise AssertionError(f"the batched path never launched {name}")
-    # decode walls of the units still in the pool at the end of the run
-    walls = [w for run in eng._runners.values() for w in run.decode_walls]
 
     # the same requests, one at a time, under the kernel profiler
     seq = make_engine(mc, params)
@@ -1181,8 +1179,7 @@ def serve(mc, params):
     n_tok = sum(len(r.tokens) for r in done)
     return {"stats": stats, "wall_s": wall, "tokens": n_tok,
             "tokens_per_s": n_tok / wall,
-            "median_decode_step_ms": 1e3 * statistics.median(walls),
-            "decode_steps": len(walls), "counts": counts,
+            "decode_steps": stats["decode_launches"], "counts": counts,
             "completed": len(done),
             "dropped": sum(r.status == "dropped" for r in reqs),
             "compared": compared, "prefix_hits_batched": stats["prefix_hits"],
@@ -1767,11 +1764,12 @@ def serve_handoff(mc, params) -> dict:
         raise AssertionError(
             f"phase 4d (a): {len(parted)} of {N_REQ} requests part from "
             f"the unified run (rid, unified, disaggregated): {parted}")
-    walls = eng._runners[mids["decode"]].decode_walls
+    # the prefill unit stops at the boundary token: every decode launch
+    # of the disaggregated run is the decode unit's
     return {"handoffs": handoffs, "migrated": moved[0],
             "tokens_reused": dst.stats["tokens_reused"],
-            "budgets": budgets, "decode_steps": len(walls),
-            "median_decode_step_ms": 1e3 * statistics.median(walls),
+            "budgets": budgets,
+            "decode_steps": dis["stats"]["decode_launches"],
             "wall_s": {k: run["wall_s"] for k, run in runs.items()},
             "counts": {k: uni["counts"][k] + dis["counts"][k]
                        for k in uni["counts"]}}
@@ -1887,8 +1885,7 @@ def handoff_phase(mc, params, smi: str) -> dict:
         f"{ho['budgets'][1]}; greedy tokens bitwise equal to the unified "
         f"run on all {N_REQ}; walls unified {ho['wall_s']['unified']:.3f} "
         f"s, disaggregated {ho['wall_s']['disaggregated']:.3f} s; decode "
-        f"unit's median decode step {ho['median_decode_step_ms']:.3f} ms "
-        f"over {ho['decode_steps']} steps")
+        f"unit's {ho['decode_steps']} decode steps")
     se = serve_sessions(mc, params)
     log(f"  (b) {SESSION_USERS} sessions x {SESSION_TURNS} turns, tenants "
         f"{SESSION_TENANTS}: per-turn mean hit depth {se['depths']}; hit "
@@ -3689,8 +3686,7 @@ def main() -> int:
         f"{st['scale_ups']}, merges {st['merges']}")
     log(f"  tokens/s {res['tokens_per_s']:.2f} ({res['tokens']} tokens in "
         f"{res['wall_s']:.3f} s wall, batched run)")
-    log(f"  median decode step {res['median_decode_step_ms']:.3f} ms over "
-        f"{res['decode_steps']} steps (batched run)")
+    log(f"  {res['decode_steps']} decode steps (batched run)")
     log(f"  main-path kernel launches: {res['counts']}")
     for name, s in sorted(res["profile"].items()):
         log(f"  profiler (one at a time) {name:24s} launches "
@@ -3714,7 +3710,7 @@ def main() -> int:
     ho, se = hp["handoff"], hp["sessions"]
     log(f"  handoff (phase 4d (a)): {ho['handoffs']} handoffs, greedy "
         f"tokens equal to the unified run on {N_REQ} requests, decode "
-        f"unit's median decode step {ho['median_decode_step_ms']:.3f} ms; "
+        f"unit's {ho['decode_steps']} decode steps; "
         f"sessions (b): hit rate {se['hit_rate']:.4f} against "
         f"{se['single_hit_rate']:.4f}, cache-off tokens equal on "
         f"{se['turns']} turns; phase 4d {hp['wall_s']:.1f} s, launches "

@@ -268,45 +268,51 @@ class ControlPlane:
                 break
             t, _, _, kind, payload = heapq.heappop(self._events)
             self.now = max(self.now, t)
-            if kind == "arrive":
-                # coalesce simultaneous arrivals: the whole burst is admitted
-                # (and can merge pairwise) before the mapping event fires
-                items = [payload]
-                while (self._events and self._events[0][0] == t
-                       and self._events[0][3] == "arrive"):
-                    items.append(heapq.heappop(self._events)[4])
-                for item in items:
-                    task = self.sub.ingest(item, self.now)
-                    if task is not None:
-                        self.submit(task)
-                    else:
-                        # served at ingest (result-cache hit): no scheduling
-                        self.tel.event(self.now, "served_at_ingest",
-                                       plane=self.plane_id)
-                        self.tel.metrics.inc("served_at_ingest")
-                        if self.on_complete is not None:
-                            self.on_complete(item, self.now, "served")
-                self._mapping_event()
-            elif kind == "finish":
-                mid, epoch = payload
-                m = self._machine(mid)
-                if m is None or epoch != self._epoch.get(mid):
-                    continue  # stale event (task evicted / machine retired)
-                self._handle_finish(m)
-                self._mapping_event()
-            elif kind == "handoff":
-                # the prefill→decode boundary (§2.13): the transfer delay
-                # has elapsed — migrate KV, requeue on the decode machine
-                self._handle_handoff(*payload)
-                self._mapping_event()
-            elif kind == "warm":
-                m = self._machine(payload)
-                if m is not None and m.running is not None \
-                        and m.running.is_placeholder:
-                    m.running = None
-                self._mapping_event()
-            else:  # wake
-                self._mapping_event()
+            with self.tel.span("cp." + kind):
+                self._dispatch(t, kind, payload)
+
+    def _dispatch(self, t: float, kind: str, payload) -> None:
+        """Handle one event popped at instant ``t`` (``run``'s loop
+        body)."""
+        if kind == "arrive":
+            # coalesce simultaneous arrivals: the whole burst is admitted
+            # (and can merge pairwise) before the mapping event fires
+            items = [payload]
+            while (self._events and self._events[0][0] == t
+                   and self._events[0][3] == "arrive"):
+                items.append(heapq.heappop(self._events)[4])
+            for item in items:
+                task = self.sub.ingest(item, self.now)
+                if task is not None:
+                    self.submit(task)
+                else:
+                    # served at ingest (result-cache hit): no scheduling
+                    self.tel.event(self.now, "served_at_ingest",
+                                   plane=self.plane_id)
+                    self.tel.metrics.inc("served_at_ingest")
+                    if self.on_complete is not None:
+                        self.on_complete(item, self.now, "served")
+            self._mapping_event()
+        elif kind == "finish":
+            mid, epoch = payload
+            m = self._machine(mid)
+            if m is None or epoch != self._epoch.get(mid):
+                return  # stale event (task evicted / machine retired)
+            self._handle_finish(m)
+            self._mapping_event()
+        elif kind == "handoff":
+            # the prefill→decode boundary (§2.13): the transfer delay
+            # has elapsed — migrate KV, requeue on the decode machine
+            self._handle_handoff(*payload)
+            self._mapping_event()
+        elif kind == "warm":
+            m = self._machine(payload)
+            if m is not None and m.running is not None \
+                    and m.running.is_placeholder:
+                m.running = None
+            self._mapping_event()
+        else:  # wake
+            self._mapping_event()
 
     # -- admission control (Sections 4.1-4.4) ---------------------------------
     def submit(self, task: Task) -> Task | None:
@@ -391,6 +397,10 @@ class ControlPlane:
 
     # -- mapping event (Fig. 5.2 / Fig. 5.5) ----------------------------------
     def _mapping_event(self) -> None:
+        with self.tel.span("cp.map"):
+            self._map()
+
+    def _map(self) -> None:
         self.sub.before_mapping(self.now)
         # the overhead clock covers *scheduling* only: elasticity above and
         # machine starts below run substrate code (compiles, model steps)
@@ -402,10 +412,11 @@ class ControlPlane:
         if self.pruner is not None:
             # pruner dropping pass over machine queues (Fig. 5.5); its wall
             # time is the mechanism's own overhead (§5.5), attributed apart
-            tp0 = time.perf_counter()
-            dropped = self.pruner.drop_pass(machines, self.now,
-                                            self._misses_since_event)
-            self.stats["pruning_wall_s"] += time.perf_counter() - tp0
+            with self.tel.span("cp.prune"):
+                tp0 = time.perf_counter()
+                dropped = self.pruner.drop_pass(machines, self.now,
+                                                self._misses_since_event)
+                self.stats["pruning_wall_s"] += time.perf_counter() - tp0
             self._misses_since_event = 0
             for t in dropped:
                 self._evict_if_running(t, machines)
@@ -430,10 +441,11 @@ class ControlPlane:
                     and self.heuristic.name not in ("PAM", "PAMF")):
                 # Eq. 5.10 estimator runs every mapping event regardless of
                 # the plugged-in heuristic (Fig. 5.5)
-                tp0 = time.perf_counter()
-                self.pruner.refresh_defer_threshold(
-                    self.batch, machines, ctx.chance, self.now)
-                self.stats["pruning_wall_s"] += time.perf_counter() - tp0
+                with self.tel.span("cp.prune"):
+                    tp0 = time.perf_counter()
+                    self.pruner.refresh_defer_threshold(
+                        self.batch, machines, ctx.chance, self.now)
+                    self.stats["pruning_wall_s"] += time.perf_counter() - tp0
             before_defer = self.pruner.stats["deferred"] if self.pruner else 0
             if self.pruner is not None:
                 self.pruner.defer_log.clear()
@@ -460,7 +472,6 @@ class ControlPlane:
                                    machine=m.mid, plane=self.plane_id)
         dt = time.perf_counter() - t0
         self.stats["mapping_wall_s"] += dt
-        self.tel.metrics.inc("mapping_wall_s_total", dt)
         self.tel.metrics.observe("mapping_event_wall_s", dt)
         self.tel.metrics.gauge("pruning_wall_s", self.stats["pruning_wall_s"])
         # start idle machines (execution time is the substrate's, not ours)

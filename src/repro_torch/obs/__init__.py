@@ -8,7 +8,7 @@ fit lazy-import the simulator machinery (and replay the engine's
 ``Request``) on use, so importing this package builds no model."""
 
 from .metrics import MetricsRegistry, NullMetrics, StreamingHistogram
-from .telemetry import NULL, NullTelemetry, Telemetry
+from .telemetry import NULL, NullTelemetry, Telemetry, clock_anchor
 from .exporters import (chrome_trace, parse_prometheus, write_chrome_trace,
                         write_jsonl, write_metrics)
 from .profiling import KernelProfiler, install, profiled
@@ -23,7 +23,7 @@ from .schema import (SCHEMA_VERSION, validate_chrome_trace,
 
 __all__ = [
     "MetricsRegistry", "NullMetrics", "StreamingHistogram",
-    "NULL", "NullTelemetry", "Telemetry",
+    "NULL", "NullTelemetry", "Telemetry", "clock_anchor",
     "chrome_trace", "parse_prometheus", "write_chrome_trace", "write_jsonl",
     "write_metrics",
     "KernelProfiler", "install", "profiled",

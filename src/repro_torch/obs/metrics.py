@@ -51,6 +51,8 @@ class StreamingHistogram:
 
     # -- write ---------------------------------------------------------------
     def _bin(self, mag: float) -> int:
+        if not mag < self.hi:
+            return self._n_bins     # an infinite slack (no deadline) too
         idx = int(math.log(mag / self.lo) / self._log_g) + 1
         return min(max(idx, 1), self._n_bins)
 

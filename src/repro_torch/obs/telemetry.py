@@ -13,13 +13,71 @@ does nothing and whose metrics sink discards writes.  Decision code never
 *reads* telemetry, so attaching a real recorder is provably
 zero-perturbation (tested in tests/test_obs.py by diffing decision traces
 with telemetry on vs off).
+
+Timed spans (:meth:`Telemetry.span`) are registry counters, not events:
+``span_s``, ``span_self_s`` (the part no nested span covers) and ``span_n``,
+each labelled ``span=<name>``, on ``time.perf_counter``.  They write no
+event, so the simulator's and the engine's streams stay diffable.  With
+``annotate`` set, each span is also a ``torch.profiler.record_function``
+range, so a device trace names its idle gaps by the program's spans.
 """
 
 from __future__ import annotations
 
+import time
+
 from .metrics import MetricsRegistry, NullMetrics
 
-__all__ = ["Telemetry", "NullTelemetry", "NULL"]
+__all__ = ["Telemetry", "NullTelemetry", "NULL", "clock_anchor"]
+
+
+class _Span:
+    """A named span of one recorder.  Reentrant: what an open span needs
+    (start, seconds its children took, profiler range) lives on the
+    recorder's stack, so one object serves every use of the name."""
+
+    __slots__ = ("tel", "name")
+
+    def __init__(self, tel: "Telemetry", name: str):
+        self.tel = tel
+        self.name = name
+
+    def __enter__(self):
+        rf = None
+        if self.tel.annotate:
+            from torch.profiler import record_function
+            rf = record_function(self.name)
+            rf.__enter__()
+        self.tel._open.append([time.perf_counter(), 0.0, rf])
+        return self
+
+    def __exit__(self, *exc):
+        t1 = time.perf_counter()
+        stack = self.tel._open
+        t0, inner, rf = stack.pop()
+        dt = t1 - t0
+        if stack:
+            stack[-1][1] += dt
+        m = self.tel.metrics
+        m.inc("span_s", dt, span=self.name)
+        m.inc("span_self_s", dt - inner, span=self.name)
+        m.inc("span_n", 1, span=self.name)
+        if rf is not None:
+            rf.__exit__(*exc)
+        return False
+
+
+class _NullSpan:
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NULL_SPAN = _NullSpan()
 
 
 class Telemetry:
@@ -38,6 +96,28 @@ class Telemetry:
         self.events: list[dict] = []
         self.metrics = metrics if metrics is not None else MetricsRegistry()
         self.wall_clock = wall_clock
+        #: also mark every span as a ``torch.profiler`` range (set only
+        #: while a device trace runs)
+        self.annotate = False
+        self._spans: dict[str, _Span] = {}
+        self._open: list[list] = []
+
+    def span(self, name: str) -> _Span:
+        """Context manager timing ``name`` into the registry's span
+        counters.  It never syncs the device and adds no event."""
+        s = self._spans.get(name)
+        if s is None:
+            s = self._spans[name] = _Span(self, name)
+        return s
+
+    def span_totals(self) -> dict:
+        """``{name: {"span_s": ..., "span_self_s": ..., "span_n": ...}}``
+        over every span recorded so far."""
+        out: dict = {}
+        for (name, labels), v in self.metrics.counters.items():
+            if name in ("span_s", "span_self_s", "span_n"):
+                out.setdefault(dict(labels)["span"], {})[name] = v
+        return out
 
     def event(self, t: float, kind: str, **attrs) -> None:
         ev = {"t": round(float(t), 9), "kind": kind}
@@ -69,10 +149,17 @@ class NullTelemetry:
     enabled = False
     events: list = []           # class-level, never written
     wall_clock = None
+    annotate = False
     metrics = NullMetrics()
 
     def event(self, t, kind, **attrs):
         pass
+
+    def span(self, name):
+        return _NULL_SPAN
+
+    def span_totals(self):
+        return {}
 
     def events_of(self, *kinds):
         return []
@@ -85,3 +172,16 @@ class NullTelemetry:
 
 
 NULL = NullTelemetry()
+
+
+def clock_anchor(name: str = "clock_anchor") -> float:
+    """Mark the running ``torch.profiler`` session with a range ``name``
+    and return the ``time.perf_counter`` reading taken inside it: the
+    range's trace ``ts`` (microseconds) minus 1e6 times the reading is the
+    offset that places perf_counter stamps (spans, request stamps) on the
+    trace's timeline."""
+    from torch.profiler import record_function
+    with record_function(name + ".warm"):
+        pass        # a session's first range pays its set-up (~1 ms)
+    with record_function(name):
+        return time.perf_counter()

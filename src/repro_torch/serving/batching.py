@@ -35,6 +35,8 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 
+from ..obs.telemetry import NULL
+
 __all__ = ["StepBatchingConfig", "SeqState", "StepPlan", "UnitBatch",
            "analytic_cost_fn", "task_dims", "step_cost"]
 
@@ -235,10 +237,11 @@ class UnitBatch:
         self.steps += 1
 
     # -- quantum execution ----------------------------------------------------
-    def run_quantum(self, now: float, exec_fn=None):
+    def run_quantum(self, now: float, exec_fn=None, tel=NULL):
         """Execute up to ``quantum_steps`` steps from ``now``, stopping at
         the first completion.  Returns ``(t_end, completed SeqStates)`` or
-        ``(None, [])`` when there is nothing to run."""
+        ``(None, [])`` when there is nothing to run.  ``tel`` (the live
+        engine's recorder) times each step's planning."""
         self.seqs.extend(self.pending)
         self.pending.clear()
         self.seqs = [s for s in self.seqs if not s.dead]
@@ -249,7 +252,8 @@ class UnitBatch:
         step = exec_fn or self.cost_fn
         completed: list[SeqState] = []
         for _ in range(self.cfg.quantum_steps):
-            plan = self.plan_step()
+            with tel.span("runner.plan"):
+                plan = self.plan_step()
             if plan.empty:
                 break
             dt = step(plan)

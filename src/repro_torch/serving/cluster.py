@@ -356,10 +356,7 @@ class Router:
             raise ValueError("plane ids must be unique")
         #: one obs.Telemetry shared by the router and every plane, so the
         #: cluster's whole timeline lands in a single exportable stream
-        self.tel = telemetry if telemetry is not None else NULL
-        if self.tel.enabled:
-            for p in self.planes:
-                self._attach_plane_telemetry(p)
+        self.tel = NULL
         self.policy = (policy if isinstance(policy, RouterPolicy)
                        else make_router_policy(policy))
         self.shared = CrossPlaneLookup(self.planes) if shared_detector \
@@ -388,9 +385,19 @@ class Router:
             # each plane is scored on its own device (``_plane_signals``);
             # the scaler reports the base plane's
             self.plane_scaler.device = self.planes[0].sub.device
-            if self.tel.enabled:
-                self.plane_scaler.tel = self.tel
-                self.plane_scaler.scope = "planes"
+        if telemetry is not None:
+            self.attach_telemetry(telemetry)
+
+    def attach_telemetry(self, tel) -> None:
+        """Wire ``tel`` through the router, every plane and the plane
+        scaler; mid-run too, and ``obs.NULL`` detaches it.  Recording
+        only: no decision reads it."""
+        self.tel = tel
+        for p in self.planes:
+            self._attach_plane_telemetry(p)
+        if self.plane_scaler is not None:
+            self.plane_scaler.tel = tel
+            self.plane_scaler.scope = "planes"
 
     def _attach_plane_telemetry(self, plane: Plane) -> None:
         """Wire the router's recorder through one plane — via the
@@ -409,27 +416,29 @@ class Router:
         first advanced to ``t`` so routing signals — load, live merge
         targets, cache residency — are current); returns the chosen
         plane."""
-        self.step(t)
-        if self.plane_scaler is not None:
-            self.plane_scaler.step(t, self._plane_signals(t))
-        ctx = RoutingContext(_probe(item, t), t, shared=self.shared)
-        plane, reason = self.policy.choose(self.planes, ctx)
-        plane.cp.schedule_arrival(t, plane.adapt(item, t))
-        self.stats["submitted"] += 1
-        self.stats["routed"][plane.pid] += 1
-        if reason.startswith("affinity:"):
-            self.stats["affinity_hits"] += 1
-            if reason == "affinity:prefix":
-                self.stats["prefix_affinity"] += 1
-        self.decisions.append((round(t, 6), plane.pid, reason))
-        self.tel.event(t, "route", plane=plane.pid, reason=reason)
-        self.tel.metrics.inc("routed", plane=str(plane.pid))
+        with self.tel.span("router.submit"):
+            self.step(t)
+            if self.plane_scaler is not None:
+                self.plane_scaler.step(t, self._plane_signals(t))
+            ctx = RoutingContext(_probe(item, t), t, shared=self.shared)
+            plane, reason = self.policy.choose(self.planes, ctx)
+            plane.cp.schedule_arrival(t, plane.adapt(item, t))
+            self.stats["submitted"] += 1
+            self.stats["routed"][plane.pid] += 1
+            if reason.startswith("affinity:"):
+                self.stats["affinity_hits"] += 1
+                if reason == "affinity:prefix":
+                    self.stats["prefix_affinity"] += 1
+            self.decisions.append((round(t, 6), plane.pid, reason))
+            self.tel.event(t, "route", plane=plane.pid, reason=reason)
+            self.tel.metrics.inc("routed", plane=str(plane.pid))
         return plane
 
     def step(self, until: float) -> None:
         """Advance every plane's event loop to (strictly before) ``until``."""
-        for p in self.planes:
-            p.cp.run(until=until)
+        with self.tel.span("router.step"):
+            for p in self.planes:
+                p.cp.run(until=until)
 
     def next_event_time(self) -> float | None:
         """Earliest scheduled event instant across the planes, or None —

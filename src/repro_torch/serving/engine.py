@@ -87,6 +87,12 @@ class Request:
     logprobs: float | None = None
     status: str = "queued"
     completed_at: float | None = None
+    # wall stamps (time.perf_counter) of a request the batched unit runner
+    # answers, shared by the requests merged into its task: admission to
+    # the unit, and the final prompt chunk's first token (their difference
+    # is the telemetry histogram ``prefill_wait_s``)
+    t_admit: float | None = None
+    t_first: float | None = None
 
     @property
     def params_sig(self) -> tuple:
@@ -427,8 +433,6 @@ class _UnitRunner:
         self._ticks = engine.cfg.time_scale / self.m.speed
         self.rp = 0.0   # wall seconds per prefill token
         self.rd = 0.0   # wall seconds per batch-1 decode step
-        #: wall seconds of every batched decode launch (argmax included)
-        self.decode_walls: list[float] = []
         self.setup_wall = self._calibrate()
 
     def _empty_kv(self):
@@ -516,6 +520,10 @@ class _UnitRunner:
             ub.join(SeqState(task=task, plen=max(plen, 1), n_new=n_new,
                              exclusive=True, excl_left=dur), now)
             return
+        wall = time.perf_counter()
+        for r in reqs:
+            if r.t_admit is None:   # a handoff continuation keeps its own
+                r.t_admit = wall
         run_new = n_new
         if (first is None and self.m.phase == "prefill" and n_new > 1
                 and any(x.phase != "prefill" for x in eng.machines)):
@@ -559,69 +567,93 @@ class _UnitRunner:
     def exec_step(self, plan) -> float:
         if plan.exclusive is not None:
             return plan.exclusive.excl_left
+        with self.eng.cp.tel.span("runner.step"):
+            return self._exec_step(plan)
+
+    def _exec_step(self, plan) -> float:
         eng = self.eng
+        tel, stats = eng.cp.tel, eng.stats
         vc = 0.0
         for s, c in plan.chunks:
             st = self.states[id(s)]
             t0 = time.perf_counter()
-            toks = np.zeros((1, self.c_pad), np.int64)
-            toks[0, :c] = st["prompt"][s.prefill_done:s.prefill_done + c]
-            toks = torch.from_numpy(toks).to(self.dev)
-            if st["k"]:
-                pk = torch.cat(st["k"], dim=1)[:, None].to(self.dev)
-                pv = torch.cat(st["v"], dim=1)[:, None].to(self.dev)
-            else:
-                pk = pv = self._empty_kv()
-            logits, kn, vn = profiled("chunk_prefill", self._chunk,
-                                      eng.params, toks, pk, pv, last=c - 1,
-                                      kv_len=self.kv_len)
-            _sync(self.dev)
-            st["k"].append(kn[:, 0, :c].cpu())
-            st["v"].append(vn[:, 0, :c].cpu())
+            with tel.span("runner.chunk_stage"):
+                toks = np.zeros((1, self.c_pad), np.int64)
+                toks[0, :c] = st["prompt"][s.prefill_done:s.prefill_done + c]
+                toks = torch.from_numpy(toks).to(self.dev)
+            with tel.span("runner.kv_in"):
+                if st["k"]:
+                    pk = torch.cat(st["k"], dim=1)[:, None].to(self.dev)
+                    pv = torch.cat(st["v"], dim=1)[:, None].to(self.dev)
+                else:
+                    pk = pv = self._empty_kv()
+            with tel.span("runner.chunk_launch"):
+                logits, kn, vn = profiled("chunk_prefill", self._chunk,
+                                          eng.params, toks, pk, pv,
+                                          last=c - 1, kv_len=self.kv_len)
+                _sync(self.dev)
+            with tel.span("runner.kv_out"):
+                st["k"].append(kn[:, 0, :c].cpu())
+                st["v"].append(vn[:, 0, :c].cpu())
+            stats["chunk_launches"] += 1
+            stats["chunk_rows"] += c
+            stats["chunk_cells"] += c * (s.prefill_done + c)
+            stats["chunk_cells_launched"] += self.c_pad * self.kv_len
             self._obs_rate("rp", (time.perf_counter() - t0) / c)
             if s.prefill_done + c >= s.plen:
                 # final chunk: its last-position logits yield the first new
                 # token (what the sequential prefill's argmax produces) and
                 # the accumulated KV commits to this sequence's pages; a
                 # continuation's first new token is the boundary token
-                st["cur"] = (st["first"] if st["first"] is not None
-                             else int(torch.argmax(logits[0])))
-                st["out"].append(st["cur"])
-                self._commit(s, st)
+                with tel.span("runner.sample"):
+                    st["cur"] = (st["first"] if st["first"] is not None
+                                 else int(torch.argmax(logits[0])))
+                    st["out"].append(st["cur"])
+                wall = time.perf_counter()
+                for r in eng._inflight.get(s.task.tid, ()):
+                    if r.t_first is None:
+                        r.t_first = wall
+                        tel.metrics.observe("prefill_wait_s",
+                                            wall - r.t_admit)
+                with tel.span("runner.kv_in"):
+                    self._commit(s, st)
             vc += c * self.rp * self._ticks
         vd = 0.0
         k = len(plan.decode)
         if k:
             t0 = time.perf_counter()
-            bucket = self.cfgb.max_batch        # fixed shape (class doc)
-            toks = np.zeros((bucket,), np.int64)
-            tabs = np.zeros((bucket, self.mp), np.int32)
-            lens = np.zeros((bucket,), np.int32)
-            sts = [self.states[id(s)] for s in plan.decode]
-            for i, st in enumerate(sts):
-                toks[i] = st["cur"]
-                tabs[i] = st["tab"]
-                lens[i] = st["len"]
-            logits, kp, vp = profiled(
-                "paged_decode_step", self._pdec,
-                eng.params, self.pages["kp"], self.pages["vp"],
-                torch.from_numpy(tabs).to(self.dev),
-                torch.from_numpy(lens).to(self.dev),
-                torch.from_numpy(toks).to(self.dev))
-            _sync(self.dev)
+            with tel.span("runner.decode_stage"):
+                bucket = self.cfgb.max_batch    # fixed shape (class doc)
+                toks = np.zeros((bucket,), np.int64)
+                tabs = np.zeros((bucket, self.mp), np.int32)
+                lens = np.zeros((bucket,), np.int32)
+                sts = [self.states[id(s)] for s in plan.decode]
+                for i, st in enumerate(sts):
+                    toks[i] = st["cur"]
+                    tabs[i] = st["tab"]
+                    lens[i] = st["len"]
+                tabs = torch.from_numpy(tabs).to(self.dev)
+                lens = torch.from_numpy(lens).to(self.dev)
+                toks = torch.from_numpy(toks).to(self.dev)
+            with tel.span("runner.decode_launch"):
+                logits, kp, vp = profiled(
+                    "paged_decode_step", self._pdec, eng.params,
+                    self.pages["kp"], self.pages["vp"], tabs, lens, toks)
+                _sync(self.dev)
             self.pages = {"kp": kp, "vp": vp}
-            nxt = torch.argmax(logits, dim=-1).tolist()
-            for i, st in enumerate(sts):
-                st["len"] += 1
-                st["cur"] = int(nxt[i])
-                st["out"].append(st["cur"])
-            wall = time.perf_counter() - t0
-            self.decode_walls.append(wall)
-            self._obs_rate("rd", wall / k)
+            with tel.span("runner.sample"):
+                nxt = torch.argmax(logits, dim=-1).tolist()
+                for i, st in enumerate(sts):
+                    st["len"] += 1
+                    st["cur"] = int(nxt[i])
+                    st["out"].append(st["cur"])
+            stats["decode_launches"] += 1
+            stats["decode_rows"] += k
+            self._obs_rate("rd", (time.perf_counter() - t0) / k)
             vd = (1.0 + self.cfgb.batch_marginal_cost * (k - 1)) \
                 * self.rd * self._ticks
         dt = step_cost(vc, vd, self.cfgb.fused_step_overlap)
-        eng.stats["cost"] += dt * self.m.cost_rate
+        stats["cost"] += dt * self.m.cost_rate
         return dt
 
     def _commit(self, s: SeqState, st: dict) -> None:
@@ -786,7 +818,13 @@ class ServingEngine(Substrate):
                       "pruning_wall_s": 0.0,
                       "prefix_hits": 0, "prefix_candidates": 0,
                       "prefix_tokens_reused": 0,
-                      "prefill_tokens": 0}  # prefix_* mirrored from kvcache
+                      "prefill_tokens": 0,  # prefix_* mirrored from kvcache
+                      # the unit runners' launches and their real rows
+                      # (chunk_cells: rows x keys attended; launched: the
+                      # padded rows x keys of those launches)
+                      "chunk_launches": 0, "chunk_rows": 0,
+                      "chunk_cells": 0, "chunk_cells_launched": 0,
+                      "decode_launches": 0, "decode_rows": 0}
         self._tel = None                    # obs.Telemetry once attached
         self.cp = ControlPlane(self, cfg.control())
         #: per-unit paged KV caches, mid -> PrefixKVCache (DESIGN.md §2.4 /
@@ -1066,6 +1104,10 @@ class ServingEngine(Substrate):
         per-token rates, *identically* to the simulator's ``join_batch`` —
         so stub-engine ↔ simulator decision traces stay equivalent under
         batching; compiled units hand off to their live runner."""
+        with self.cp.tel.span("engine.admit"):
+            self._join_batch(task, m, now)
+
+    def _join_batch(self, task: Task, m: Machine, now: float) -> None:
         reqs = []
         for t in task.all_requests():
             reqs += self.requests.pop(t.tid, [])
@@ -1117,13 +1159,17 @@ class ServingEngine(Substrate):
         if ub is None or ub.empty:
             return None, []
         runner = self._runners.get(m.mid)
-        t_end, completed = ub.run_quantum(
-            now, exec_fn=runner.exec_step if runner is not None else None)
-        if t_end is None:
-            return None, []
-        if runner is not None:
-            for s in completed:
-                runner.complete(s)
+        tel = self.cp.tel
+        with tel.span("engine.quantum"):
+            t_end, completed = ub.run_quantum(
+                now, exec_fn=runner.exec_step if runner is not None else None,
+                tel=tel)
+            if t_end is None:
+                return None, []
+            if runner is not None:
+                with tel.span("runner.complete"):
+                    for s in completed:
+                        runner.complete(s)
         return t_end, [s.task for s in completed]
 
     def evict_from_batch(self, task: Task, m: Machine, now: float) -> None:

@@ -222,7 +222,7 @@ class TestTokenIdentity:
                                                      step_token_budget=32),
                       time_scale=1e6)
         bat.run([(float(i), r) for i, r in enumerate(b)])
-        launches = sum(len(r.decode_walls) for r in bat._runners.values())
+        launches = bat.collect_stats()["decode_launches"]
         assert len(calls) == sum(r.n_new for r in a) == 32
         assert 0 < launches < len(calls) // 2
         assert [r.tokens for r in a] == [r.tokens for r in b]

@@ -126,6 +126,35 @@ def test_serve_cli_telemetry_out(tmp_path):
     assert ev and all("t" in e and "kind" in e for e in ev)
 
 
+@pytest.mark.parametrize("suffix", ["json", "prom"])
+def test_serve_cli_metrics_carry_spans(tmp_path, suffix):
+    """--metrics-out (a JSON snapshot, or Prometheus text for ``.prom``)
+    carries the timed spans of the Router, the control plane, the engine
+    and the unit runner as ``span_s``, ``span_self_s`` and ``span_n``
+    counters labelled by span, and the runner's wait from admission to
+    first token as the histogram ``prefill_wait_s``."""
+    from repro_torch.obs import parse_prometheus
+    path = tmp_path / f"metrics.{suffix}"
+    _serve(["--requests", "6", "--units", "1", "--rate", "0.5",
+            "--max-batch", "4", "--step-token-budget", "32",
+            "--metrics-out", str(path)])
+    text = path.read_text()
+    if suffix == "json":
+        snap = json.loads(text)
+        names = set(snap["counters"])
+        waits = snap["histograms"]["prefill_wait_s"]
+        assert waits["count"] > 0 and waits["min"] >= 0.0
+    else:
+        parsed = parse_prometheus(text)
+        names = {n + "{" + ",".join(f'{a}="{b}"' for a, b in labels) + "}"
+                 for n, labels in parsed}
+        assert parsed[("prefill_wait_s_count", ())] > 0
+    for span in ("router.submit", "cp.arrive", "cp.map", "engine.admit",
+                 "runner.step", "runner.chunk_launch", "runner.decode_launch"):
+        for counter in ("span_s", "span_self_s", "span_n"):
+            assert f'{counter}{{span="{span}"}}' in names, (counter, span)
+
+
 def test_serve_cli_closed_loop():
     """--workload closed_loop drives the port's Router with multi-turn
     sessions; per-turn and per-tenant counters ride in the summary."""

@@ -209,12 +209,18 @@ def test_same_record_same_fit_and_drift(cfg_kw, n_units, trace_kw):
     ref, _, _ = _record_run(_request_trace(Req=JaxRequest, **trace_kw),
                             cfg_kw, n_units, jax=True)
     record = _json_roundtrip(ours.to_artifact())
-    # both stub engines record the same artifact, host wall times aside
+    # both stub engines record the same artifact, host wall times aside;
+    # the port's unit-runner launch counters stay 0 on a stub engine
     walls = ("mapping_wall_s", "pruning_wall_s")
+    launches = ("chunk_launches", "chunk_rows", "chunk_cells",
+                "chunk_cells_launched", "decode_launches", "decode_rows")
     assert {k: v for k, v in record.items() if k != "stats"} == \
         {k: v for k, v in _json_roundtrip(ref.to_artifact()).items()
          if k != "stats"}
-    assert {k: v for k, v in record["stats"].items() if k not in walls} == \
+    assert {k: record["stats"][k] for k in launches} == \
+        dict.fromkeys(launches, 0)
+    assert {k: v for k, v in record["stats"].items()
+            if k not in walls + launches} == \
         {k: v for k, v in ref.to_artifact()["stats"].items()
          if k not in walls}
     assert fit_table(record) == jax_fit_table(record)
