@@ -5,7 +5,7 @@
 
 Phases (any failure exits non-zero and prints no result line):
 
-1. Print the card's name and power limit; build the four CUDA C++ sources
+1. Print the card's name and power limit; build the five CUDA C++ sources
    in the checkout with nvcc (one library, loaded with ctypes).
 2. Hold each kernel against its plain PyTorch version on the card, at the
    main paths' shapes, and time kernel, plain version and the one-call
@@ -70,6 +70,13 @@ Phases (any failure exits non-zero and prints no result line):
      it (f32, atol 1e-6 / rtol 1e-5), and its front door
      ``batched_success`` at (32, 64) against ``chance_of_success`` (1e-5),
      with its wall a call;
+   * the chunked prefill's causal attention at smollm-360m's widths, a
+     2,048-row chunk with 1,000 real rows after a 1,900-token prefix (the
+     JSON row) and with 2,048 after 4,096: against its plain version (f32)
+     over the real rows at 2^-8 of the largest |v| + rtol 2^-7 (the kernel
+     rounds the probabilities and its output to bf16), the padding rows
+     zeros; timed beside ``scaled_dot_product_attention`` over the real
+     rows and their keys with the causal mask at the prefix's offset;
    * the floor of a launch: the library's empty kernel through the same
      ctypes route, device time and back-to-back wall a call.
 3. The batched path: a full-width smollm-360m ``ServingEngine`` with
@@ -1065,6 +1072,114 @@ def check_pmf_conv(n: int = 32, length: int = 64) -> dict:
                      f"{wall:.5f} ms"}
 
 
+#: (real rows, prefix) of the chunked prefill's kernel rows: a typical
+#: chunk of the longdoc traffic (the JSON row) and a full chunk after a
+#: long prefix; the chunk always launches with the step budget's rows
+CHUNK_SHAPES = ((1000, 1900), (2048, 4096))
+CHUNK_BUDGET = 2048
+#: one set of inputs a layer, walked as a chunk walks its layers
+CHUNK_LAYERS = 4
+
+
+def check_chunk_attention(mc) -> dict:
+    """The chunked prefill's kernel at smollm-360m's widths, B = 1, the
+    unit runner's 2,048-row chunk, at ``CHUNK_SHAPES``: against its plain
+    version in f32 over the real rows, each element within twice the most
+    the kernel's bf16 roundings can move it (2^-8 of the plain version
+    applied to |v|, plus 2^-8 of the output: each probability rounded
+    before P.V moves an output by at most 2^-9 sum_j p_j |v_j|, and the
+    output's rounding by 2^-9 of it; about 3e-3 here against a typical
+    |output| of 0.02-0.03), zeros in the padding rows; ``err_share`` is
+    the largest |err| over its element's bound.  Timed beside the plain
+    version and ``F.scaled_dot_product_attention`` over the real rows and their
+    keys with the causal mask at the prefix's offset (a yardstick the port
+    never calls); the bound is the real rows' products at the bf16 tensor
+    peak or their bytes at the HBM rate, whichever is longer."""
+    from repro_torch.kernels.chunk_attention.ops import chunk_attention_cuda
+    from repro_torch.kernels.chunk_attention.ref import (causal_cells,
+                                                         chunk_attention_ref)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    h, hkv, hd = mc.n_heads, mc.n_kv_heads, mc.resolved_head_dim
+    s = CHUNK_BUDGET
+    worst, share, timed = 0.0, 0.0, []
+    for c, p in CHUNK_SHAPES:
+        def draw(*shape):
+            return torch.randn((CHUNK_LAYERS,) + shape, generator=g,
+                               device=dev).bfloat16()
+        q, k, v = draw(1, s, h, hd), draw(1, s, hkv, hd), draw(1, s, hkv, hd)
+        pk, pv = draw(1, p, hkv, hd), draw(1, p, hkv, hd)
+        name = f"chunk_attention c={c} P={p}"
+        got = chunk_attention_cuda(q[0], pk[0], pv[0], k[0], v[0], c)
+        f32 = [t[0].float() for t in (q, pk, pv, k, v)]
+        want = chunk_attention_ref(*f32, c)[:, :c]
+        tol = 2.0 ** -8 * (chunk_attention_ref(
+            f32[0], f32[1], f32[2].abs(), f32[3], f32[4].abs(), c)[:, :c]
+            + want.abs())
+        torch.cuda.synchronize()
+        if not torch.isfinite(got.float()).all():
+            raise AssertionError(f"{name}: kernel output is not finite")
+        err = (got[:, :c].float() - want).abs()
+        if not (err <= tol).all():
+            raise AssertionError(
+                f"{name}: max |err| / bound {float((err / tol).max()):.3g}"
+                f" (max |err| {float(err.max()):.3g}, smallest bound "
+                f"{float(tol.min()):.3g})")
+        if got[:, c:].any():
+            raise AssertionError(f"{name}: padding rows are not zeros")
+        worst = max(worst, float(err.max()))
+        share = max(share, float((err / tol).max()))
+        # the yardstick's operands, laid out (B, heads, rows, hd) beforehand
+        qt = q[:, :, :c].transpose(2, 3).contiguous()
+        kt = torch.cat([pk, k[:, :, :c]], 2).transpose(2, 3).contiguous()
+        vt = torch.cat([pv, v[:, :, :c]], 2).transpose(2, 3).contiguous()
+        mask = (torch.arange(p + c, device=dev)[None, :]
+                <= torch.arange(c, device=dev)[:, None] + p)
+        it = iter(range(10 ** 9))
+
+        def kern():
+            i = next(it) % CHUNK_LAYERS
+            chunk_attention_cuda(q[i], pk[i], pv[i], k[i], v[i], c)
+
+        def plain():
+            i = next(it) % CHUNK_LAYERS
+            chunk_attention_ref(q[i], pk[i], pv[i], k[i], v[i], c)
+
+        def library():
+            i = next(it) % CHUNK_LAYERS
+            F.scaled_dot_product_attention(qt[i], kt[i], vt[i],
+                                           attn_mask=mask, enable_gqa=True)
+
+        cells = causal_cells(p, c)
+        nbytes = 2 * hd * ((c + s) * h + 2 * (p + c) * hkv)
+        flops = 4.0 * h * hd * cells
+        t_mem = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / H100_BF16_FLOPS * 1e3
+        timed.append({**timings(kern, plain, library, iters=20),
+                      "bound_ms": max(t_mem, t_ops),
+                      "bound_by": "operations" if t_ops >= t_mem else "bytes",
+                      "cells": cells, "c": c, "p": p})
+    main, full = timed
+    return {"name": "chunk_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/"
+                      "chunk_prefill_attention.cu",
+            "replaces": "none (the JAX cached prefill is jnp full_attention,"
+                        " src/repro/models/layers.py)",
+            "max_abs_err": worst, "err_share": share,
+            **{k: main[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "warm", "wall")},
+            "shape": f"B=1 H={h} Hkv={hkv} hd={hd}, {s} rows of which "
+                     f"c={main['c']} real after P={main['p']} "
+                     f"({main['cells']} causal cells a head); full chunk "
+                     f"c={full['c']} P={full['p']}: kernel "
+                     f"{full['ms']:.4f} [{full['warm']['ms']:.4f}] ms, plain "
+                     f"{full['plain_ms']:.4f} ms, sdpa "
+                     f"{full['library_ms']:.4f} ms, bound "
+                     f"{full['bound_ms']:.5f} ms ({full['bound_by']}), "
+                     f"device cold [warm]; wall {full['wall']}"}
+
+
 def success_wall_ms(n: int = 32, length: int = 64) -> float:
     """Wall ms a call of ``batched_success`` at (n, length), the scheduler's
     call: packing on the host, the copies and the kernel (each call waits
@@ -1092,7 +1207,8 @@ def launch_floor() -> dict:
 # ---------------------------------------------------------------------------
 
 #: the kernels each main path must launch
-BATCHED_KERNELS = ("paged_decode_attention", "rmsnorm", "pmf_conv")
+BATCHED_KERNELS = ("chunk_attention", "paged_decode_attention", "rmsnorm",
+                   "pmf_conv")
 ROUTER_KERNELS = ("decode_attention", "rmsnorm")
 
 def make_requests(vocab: int, spacing: float, deadline: float):
@@ -1283,15 +1399,21 @@ def serve_router(mc, params) -> dict:
     """The port's ``Router`` over two full-width engine planes with
     serve_smse's settings (batching off: every task runs through
     ``ProcessingUnit.execute`` and ``decode_fn``), prefix cache on, then
-    the same trace with it off."""
+    the same trace with it off.  Every prefill there is the fixed-shape
+    cached prefill, whose attention is the chunk kernel once a layer."""
     from repro_torch import kernels
     from repro_torch.models import transformer as T
     from repro_torch.serving.cluster import Router, make_engine_planes
+    from repro_torch.serving.engine import ProcessingUnit
 
     # count (and time) every decode_fn call: the units build their decode
-    # step from T.decode_fn when the planes are made
-    calls = {"n": 0, "walls": []}
-    decode_fn = T.decode_fn
+    # step from T.decode_fn when the planes are made; count every prefill
+    calls = {"n": 0, "walls": [], "prefills": 0}
+    decode_fn, prefill = T.decode_fn, ProcessingUnit._prefill
+
+    def counted_prefill(self, *a, **kw):
+        calls["prefills"] += 1
+        return prefill(self, *a, **kw)
 
     def counted_decode_fn(cfg):
         step = decode_fn(cfg)
@@ -1306,7 +1428,7 @@ def serve_router(mc, params) -> dict:
         return f
 
     runs = []
-    T.decode_fn = counted_decode_fn
+    T.decode_fn, ProcessingUnit._prefill = counted_decode_fn, counted_prefill
     try:
         for prefix_cache in (True, False):
             ecfg = router_engine_config()
@@ -1317,7 +1439,7 @@ def serve_router(mc, params) -> dict:
             trace = make_router_trace(mc.vocab)
             torch.cuda.synchronize()
             kernels.reset_launch_counts()
-            calls["n"], calls["walls"] = 0, []
+            calls["n"], calls["walls"], calls["prefills"] = 0, [], 0
             t0 = time.perf_counter()
             stats = router.run(trace)
             torch.cuda.synchronize()
@@ -1325,15 +1447,22 @@ def serve_router(mc, params) -> dict:
             runs.append({"stats": stats, "wall_s": wall, "trace": trace,
                          "counts": kernels.launch_counts(),
                          "decode_calls": calls["n"],
-                         "decode_walls": list(calls["walls"])})
+                         "decode_walls": list(calls["walls"]),
+                         "prefills": calls["prefills"]})
     finally:
-        T.decode_fn = decode_fn
+        T.decode_fn, ProcessingUnit._prefill = decode_fn, prefill
     on, off = runs
     counts, reqs = on["counts"], [r for _, r in on["trace"]]
-    for name in ROUTER_KERNELS:
+    for name in ROUTER_KERNELS + ("chunk_attention",):
         if counts[name] == 0:
             raise AssertionError(f"the one-at-a-time path never launched "
                                  f"{name}")
+    for run in runs:
+        if run["counts"]["chunk_attention"] != mc.n_layers * run["prefills"]:
+            raise AssertionError(
+                f"chunk_attention launched {run['counts']['chunk_attention']}"
+                f" times over {run['prefills']} prefills, want "
+                f"{mc.n_layers} per prefill")
     if counts["decode_attention"] != mc.n_layers * on["decode_calls"]:
         raise AssertionError(
             f"decode_attention launched {counts['decode_attention']} times "
@@ -1358,6 +1487,7 @@ def serve_router(mc, params) -> dict:
     n_tok = sum(len(r.tokens) for r in done)
     st = on["stats"]
     return {"counts": counts, "decode_calls": on["decode_calls"],
+            "prefills": on["prefills"],
             "median_decode_step_ms":
                 1e3 * statistics.median(on["decode_walls"]),
             "tokens": n_tok, "wall_s": on["wall_s"],
@@ -3511,7 +3641,8 @@ def main() -> int:
     t0 = time.perf_counter()
     rows = [check_decode_attention(mc, ROUTER_MAX_LEN),
             check_paged_attention(mc, 1024, 8, 16),
-            check_rmsnorm(mc, 8, 64), check_pmf_conv()]
+            check_rmsnorm(mc, 8, 64), check_pmf_conv(),
+            check_chunk_attention(mc)]
     fa = check_family_attention(ROUTER_MAX_LEN)
     rows[0]["max_abs_err"] = max(rows[0]["max_abs_err"], fa["max_abs_err"])
     log(f"phase 2: kernels agree with their plain versions "
@@ -3523,7 +3654,9 @@ def main() -> int:
     for r in rows:
         log(f"  {r['name']:24s} {r['shape']}: {cold_and_warm(r)}; "
             f"back-to-back wall a call {r['wall']}; "
-            f"max|err| {r['max_abs_err']:.3g}")
+            f"max|err| {r['max_abs_err']:.3g}"
+            + (f" ({r['err_share']:.3g} of its bound)" if "err_share" in r
+               else ""))
     w = rows[0]
     log(f"  decode_attention windowed (B=1, {w['window_keys']} of "
         f"{WINDOW_TIMED_KEYS} keys): " + cold_and_warm(
@@ -3705,7 +3838,9 @@ def main() -> int:
     log(f"  median decode step {rr['median_decode_step_ms']:.3f} ms over "
         f"{rr['decode_calls']} decode_fn calls; decode_attention launches "
         f"{rr['counts']['decode_attention']} = {mc.n_layers} x "
-        f"{rr['decode_calls']}")
+        f"{rr['decode_calls']}; chunk_attention launches "
+        f"{rr['counts']['chunk_attention']} = {mc.n_layers} x "
+        f"{rr['prefills']} prefills")
     log(f"  main-path kernel launches: {rr['counts']}")
     ho, se = hp["handoff"], hp["sessions"]
     log(f"  handoff (phase 4d (a)): {ho['handoffs']} handoffs, greedy "

@@ -22,8 +22,8 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("decode_attention.cu", "paged_decode_attention.cu", "pmf_conv.cu",
-           "rmsnorm.cu")
+SOURCES = ("chunk_prefill_attention.cu", "decode_attention.cu",
+           "paged_decode_attention.cu", "pmf_conv.cu", "rmsnorm.cu")
 #: headers the sources include; they enter the library's hash
 HEADERS = ("decode_attention.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_ext"
@@ -32,11 +32,15 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 _IP = ctypes.POINTER(ctypes.c_int)
 #: C signatures: every pointer and the stream as c_void_p, so ctypes never
 #: truncates a 64-bit address to an int
 SIGNATURES = {
+    "chunk_attention_geometry": [_IP, _IP],
+    "chunk_attention_bf16": [_P, _P, _P, _P, _P, _P, _L, _L, _L, _L,
+                             _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "decode_attention_geometry": [_IP, _IP],
     "decode_attention_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               _F, _P],

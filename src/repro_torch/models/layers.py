@@ -6,7 +6,9 @@ matmul weight stored (in_dim, out_dim), so ``x @ w`` matches
 JAX package leaves them to XLA; every norm goes through the port's RMSNorm
 kernel (``kernels.rmsnorm``) and, on the card, the contiguous-cache decode
 attention through the port's flash-decode kernel
-(``kernels.decode_attention``).  The training path is differentiable:
+(``kernels.decode_attention``) and the cached prefill's attention through
+its fused causal kernel (``kernels.chunk_attention``).  The training path
+is differentiable:
 the RMSNorm kernel has a backward kernel, and ``flash_attention`` is an
 autograd function with the JAX package's flash backward.
 
@@ -22,6 +24,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..kernels.chunk_attention.ops import \
+    chunk_attention as _chunk_attention_kernel
 from ..kernels.decode_attention.ops import \
     decode_attention as _decode_attention_kernel
 from ..kernels.rmsnorm.ops import rmsnorm as _rmsnorm_kernel
@@ -132,13 +136,21 @@ def rope_frequencies(head_dim: int, theta: float, device=None):
     return 1.0 / (theta ** exps)
 
 
-def apply_rope(x, positions, theta: float):
-    """x: (..., S, H, hd); positions: broadcastable to (..., S)."""
-    hd = x.shape[-1]
-    freqs = rope_frequencies(hd, theta, x.device)              # (hd/2,)
+def rope_tables(positions, head_dim: int, theta: float, device=None):
+    """cos and sin of the rotation angles at ``positions`` (broadcastable
+    to (..., S)): (..., S, 1, hd/2) f32 each.  A step whose layers share
+    their positions computes them once (on the card's host each call is
+    about 0.2 ms of launches)."""
+    freqs = rope_frequencies(head_dim, theta, device)          # (hd/2,)
     angles = positions[..., None].float() * freqs              # (..., S, hd/2)
-    cos = torch.cos(angles)[..., None, :]                      # (..., S, 1, hd/2)
-    sin = torch.sin(angles)[..., None, :]
+    return torch.cos(angles)[..., None, :], torch.sin(angles)[..., None, :]
+
+
+def apply_rope(x, positions, theta: float, tables=None):
+    """x: (..., S, H, hd); positions: broadcastable to (..., S);
+    ``tables``: ``rope_tables`` at these positions, if already made."""
+    cos, sin = (tables if tables is not None else
+                rope_tables(positions, x.shape[-1], theta, x.device))
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
@@ -340,7 +352,8 @@ def decode_attention_plain(q, k_cache, v_cache, length, window: int = 0):
 
 def attention_apply(p, x, cfg, positions=None, kv_cache=None, length=None,
                     kv_out: bool = False, prefix_kv=None, q_offset: int = 0,
-                    kv_len: int | None = None, memory=None):
+                    kv_len: int | None = None, memory=None,
+                    n_rows: int | None = None, rope=None):
     """GQA attention (``layers.attention_apply``).
 
     * prefill: x (B,S,D); returns (out, (k,v) if kv_out)
@@ -351,9 +364,17 @@ def attention_apply(p, x, cfg, positions=None, kv_cache=None, length=None,
     * cached prefill: prefix_kv=(pk,pv) (B,P,Hkv,hd) already-RoPE'd KV for
       a reused prompt prefix; x holds only the suffix and ``q_offset=P``
       places it at the right absolute positions.  kv_out returns the
-      full-context (prefix+suffix) KV.  ``kv_len`` pads the attended keys
-      with zeros to that length (the causal mask hides them), so the
-      attention's shapes do not depend on P.
+      suffix's KV alone (the caller holds the prefix's).  ``kv_len`` pads the attended keys with zeros to
+      that length (the causal mask hides them), so the attention's shapes
+      do not depend on P.  On the card the attention is the fused causal
+      kernel (``kernels.chunk_attention``: f32 scores, no padded keys,
+      K/V read in their GQA layout), which computes only the first
+      ``n_rows`` rows of x (all when None; the rest trail as padding) and
+      gives zeros for the others; on the CPU, and on a mesh, it is
+      ``full_attention`` with the JAX layer's cast order over every row.
+
+    ``rope`` (prefill) is ``rope_tables`` at ``positions``, made once for
+    every layer of a step.
     """
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
@@ -377,20 +398,26 @@ def attention_apply(p, x, cfg, positions=None, kv_cache=None, length=None,
     if kv_cache is None:
         k = pctx.reshape(dense(p["wk"], x), (b, s, hkv, hd))
         v = pctx.reshape(dense(p["wv"], x), (b, s, hkv, hd))
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        q = apply_rope(q, positions, cfg.rope_theta, rope)
+        k = apply_rope(k, positions, cfg.rope_theta, rope)
         if prefix_kv is not None:
             pk, pv = prefix_kv
-            k = torch.cat([pk, k], dim=1)
-            v = torch.cat([pv, v], dim=1)
-            ka, va = k, v
-            if kv_len is not None and kv_len > k.shape[1]:
-                pad = (0, 0, 0, 0, 0, kv_len - k.shape[1])
-                ka, va = F.pad(k, pad), F.pad(v, pad)
-            q, kf, vf = map(pctx.shard_heads, (q, _repeat_kv(ka, h // hkv),
-                                               _repeat_kv(va, h // hkv)))
-            out = pctx.per_shard(full_attention, q, kf, vf, causal=True,
-                                 q_offset=q_offset)
+            if q.is_cuda and not pctx.on_mesh(q):
+                if q_offset != pk.shape[1]:
+                    raise ValueError(f"q_offset {q_offset} is not the "
+                                     f"prefix's length {pk.shape[1]}")
+                out = _chunk_attention_kernel(
+                    q, pk, pv, k, v, s if n_rows is None else n_rows)
+            else:
+                ka, va = torch.cat([pk, k], dim=1), torch.cat([pv, v], dim=1)
+                if kv_len is not None and kv_len > ka.shape[1]:
+                    pad = (0, 0, 0, 0, 0, kv_len - ka.shape[1])
+                    ka, va = F.pad(ka, pad), F.pad(va, pad)
+                q, kf, vf = map(pctx.shard_heads,
+                                (q, _repeat_kv(ka, h // hkv),
+                                 _repeat_kv(va, h // hkv)))
+                out = pctx.per_shard(full_attention, q, kf, vf, causal=True,
+                                     q_offset=q_offset)
         else:
             q, kf, vf = map(pctx.shard_heads, (q, _repeat_kv(k, h // hkv),
                                                _repeat_kv(v, h // hkv)))

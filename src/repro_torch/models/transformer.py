@@ -31,7 +31,8 @@ from ..kernels.decode_attention.ops import paged_decode_attention
 from ..parallel import ctx as pctx
 from . import xlstm as xl
 from .layers import (ParamInit, apply_rope, attention_apply,
-                     decode_attention, dense, embed, mlp_apply, rmsnorm)
+                     decode_attention, dense, embed, mlp_apply, rmsnorm,
+                     rope_tables)
 from .moe import moe_apply, moe_init
 from .ssm import mamba2_apply, mamba2_init
 
@@ -596,14 +597,22 @@ def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
 def _prefix_prefill(cfg, params, h, prefix_k, prefix_v, last: int,
                     kv_len: int | None):
     """Shared body of ``chunk_prefill_fn`` and ``prefill_from_cache``:
-    (logits at position ``last``, full-context K, V stacked over layers)."""
-    p_len = prefix_k.shape[2]
+    (logits at position ``last``, the new rows' K, V stacked over layers).
+    Rows past ``last`` trail as padding: on the card the attention
+    computes none of them.  The positions and their RoPE tables are made
+    once for every layer."""
+    p_len, s = prefix_k.shape[2], h.shape[1]
+    n_rows = last % s + 1
+    positions = torch.arange(s, device=h.device)[None, :] + p_len
+    rope = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta,
+                       h.device)
     ks, vs = [], []
     for i, lp in enumerate(_layers(params)):
         a, (k, v) = attention_apply(lp["attn"], rmsnorm(lp["ln1"], h), cfg,
-                                    kv_out=True,
+                                    positions=positions, kv_out=True,
                                     prefix_kv=(prefix_k[i], prefix_v[i]),
-                                    q_offset=p_len, kv_len=kv_len)
+                                    q_offset=p_len, kv_len=kv_len,
+                                    n_rows=n_rows, rope=rope)
         h = h + a
         h = h + mlp_apply(lp["mlp"], rmsnorm(lp["ln2"], h))
         ks.append(k)
@@ -623,16 +632,16 @@ def chunk_prefill_fn(cfg: ModelConfig):
     ``last`` and ``kv_len`` let a caller pad a chunk to a fixed shape:
     trailing pad tokens sit after every real one, so the causal mask hides
     them from the real tokens, and ``last`` picks the last real position.
+    On the card the attention reads no key past ``last`` and gives the
+    rows after it zeros (``layers.attention_apply``), so their K/V differ
+    from the CPU's from the second layer on; the real rows' do not.
     """
     _attention_family(cfg, "chunked prefill")
 
     def f(params, tokens, prefix_k, prefix_v, last: int = -1,
           kv_len: int | None = None):
-        p_len = prefix_k.shape[2]
-        logits, ks, vs = _prefix_prefill(cfg, params,
-                                         embed(params["embed"], tokens),
-                                         prefix_k, prefix_v, last, kv_len)
-        return logits, ks[:, :, p_len:], vs[:, :, p_len:]
+        return _prefix_prefill(cfg, params, embed(params["embed"], tokens),
+                               prefix_k, prefix_v, last, kv_len)
     return f
 
 
@@ -699,7 +708,9 @@ def prefill_from_cache(cfg: ModelConfig):
         logits, ks, vs = _prefix_prefill(cfg, params, h, prefix_k, prefix_v,
                                          -1, None)
         cache = init_cache(cfg, b, max_len, h.device, h.dtype)
-        cache["k"][:, :, :p_len + s], cache["v"][:, :, :p_len + s] = ks, vs
+        cache["k"][:, :, :p_len], cache["v"][:, :, :p_len] = prefix_k, prefix_v
+        cache["k"][:, :, p_len:p_len + s] = ks
+        cache["v"][:, :, p_len:p_len + s] = vs
         cache["len"].fill_(p_len + s)
         return logits, cache
     return f

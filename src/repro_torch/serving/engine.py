@@ -48,6 +48,7 @@ from ..core.pmf import PMF
 from ..core.pruning import PruningConfig
 from ..core.tasks import Machine, Task
 from ..device import resolve_device
+from ..kernels.chunk_attention.ref import attended_cells
 from ..models import transformer as T
 from ..obs.profiling import profiled
 from .autoscale import ElasticityConfig, PoolScaler
@@ -599,6 +600,7 @@ class _UnitRunner:
             stats["chunk_rows"] += c
             stats["chunk_cells"] += c * (s.prefill_done + c)
             stats["chunk_cells_launched"] += self.c_pad * self.kv_len
+            stats["chunk_attn_cells"] += attended_cells(s.prefill_done, c)
             self._obs_rate("rp", (time.perf_counter() - t0) / c)
             if s.prefill_done + c >= s.plen:
                 # final chunk: its last-position logits yield the first new
@@ -821,9 +823,12 @@ class ServingEngine(Substrate):
                       "prefill_tokens": 0,  # prefix_* mirrored from kvcache
                       # the unit runners' launches and their real rows
                       # (chunk_cells: rows x keys attended; launched: the
-                      # padded rows x keys of those launches)
+                      # padded rows x keys of those launches; attn: the
+                      # rows x keys of the tiles the card's attention
+                      # kernel computes for them)
                       "chunk_launches": 0, "chunk_rows": 0,
                       "chunk_cells": 0, "chunk_cells_launched": 0,
+                      "chunk_attn_cells": 0,
                       "decode_launches": 0, "decode_rows": 0}
         self._tel = None                    # obs.Telemetry once attached
         self.cp = ControlPlane(self, cfg.control())

@@ -30,10 +30,17 @@ same training on the host does (``MLP_CARD_ATOL``).  The RMSNorm backward
 kernel is held to its plain version at every instantiation, gives the same
 bits in two calls, and is what autograd records on the card; a reduced
 model's backward on the card reaches every parameter, and the kernels
-without a backward refuse to cut an autograd graph.
+without a backward refuse to cut an autograd graph.  The chunked prefill's
+attention kernel is held against ``full_attention`` in f32 at smollm's,
+yi-9b's and qwen1.5's widths over prefixes and real-row counts that cross
+its tiles (padding rows zeros), gives a row the same bits wherever the
+prompt is cut, is launched once a layer with no padded score tile in
+memory, and keeps the engine's batched tokens equal to one-at-a-time ones
+at smollm's widths.
 """
 
 import ctypes
+import itertools
 
 import numpy as np
 import pytest
@@ -41,6 +48,8 @@ import torch
 
 from repro_torch.configs.registry import get_arch
 from repro_torch.kernels import launch_counts, reset_launch_counts
+from repro_torch.kernels.chunk_attention.ops import (HEAD_DIMS,
+                                                     chunk_attention_cuda)
 from repro_torch.kernels.decode_attention.ops import (
     decode_attention_cuda, paged_decode_attention_cuda)
 from repro_torch.kernels.decode_attention.ref import (
@@ -816,6 +825,204 @@ def test_engine_batched_equals_one_at_a_time(cuda):
     assert tokens[0] == tokens[1]
 
 
+#: (H, Hkv, hd) of smollm-360m, yi-9b and qwen1.5-4b
+CHUNK_WIDTHS = [(15, 5, 64), (32, 4, 128), (20, 20, 128)]
+#: the chunk's rows, the unit runner's step budget
+CHUNK_S = 2048
+
+
+def _chunk_inputs(cuda, b, p, h, hkv, hd, seed, s=CHUNK_S):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=g, device=cuda).bfloat16()
+    return (draw(b, s, h, hd), draw(b, p, hkv, hd), draw(b, p, hkv, hd),
+            draw(b, s, hkv, hd), draw(b, s, hkv, hd))
+
+
+@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("n_rows", [1, 63, 64, 1000, 2048])
+@pytest.mark.parametrize("p", [0, 1, 17, 2047, 6144])
+@pytest.mark.parametrize("h,hkv,hd", CHUNK_WIDTHS)
+def test_chunk_attention_against_full_attention(cuda, h, hkv, hd, p, n_rows,
+                                                b):
+    """The chunked prefill's kernel against ``full_attention`` in f32 on the
+    same inputs (the prefix's and the chunk's K/V joined and repeated for
+    every query head), over the real rows; the padding rows are zeros."""
+    q, pk, pv, k, v = _chunk_inputs(cuda, b, p, h, hkv, hd,
+                                    seed=p + n_rows + hd)
+    got = chunk_attention_cuda(q, pk, pv, k, v, n_rows)
+    torch.cuda.synchronize()
+    _assert_within_rounding(got, q, pk, pv, k, v, n_rows)
+
+
+def _assert_within_rounding(got, q, pk, pv, k, v, n_rows):
+    """``got`` against ``full_attention`` in f32 over the real rows, each
+    element within twice the most the kernel's two bf16 roundings can move
+    it: rounding each probability p_j before P.V moves an output by at
+    most 2^-9 sum_j p_j |v_j| (the attention of |v|), and rounding the
+    output by at most 2^-9 of it.  On randn inputs that is about 2^-8 of
+    a mean |v| of 0.8, a tenth of a typical output after 2,000 keys: a
+    key tile dropped or a causal limit off by one moves rows past it.
+    The padding rows are zeros."""
+    g = q.shape[2] // k.shape[2]
+    kk = L._repeat_kv(torch.cat([pk, k[:, :n_rows]], dim=1).float(), g)
+    vv = L._repeat_kv(torch.cat([pv, v[:, :n_rows]], dim=1).float(), g)
+    qr = q[:, :n_rows].float()
+    want = L.full_attention(qr, kk, vv, causal=True, q_offset=pk.shape[1])
+    tol = 2.0 ** -8 * (L.full_attention(qr, kk, vv.abs(), causal=True,
+                                        q_offset=pk.shape[1]) + want.abs())
+    err = (got[:, :n_rows].float() - want).abs()
+    assert (err <= tol).all(), \
+        f"max |err| / bound {float((err / tol).max()):.3g}"
+    assert not got[:, n_rows:].any()
+
+
+@pytest.mark.parametrize("bucket,max_len,p", [(2, 64, 0), (4, 64, 32),
+                                              (8, 64, 17), (2, 1024, 700)])
+def test_chunk_attention_at_the_one_at_a_time_shapes(cuda, bucket, max_len,
+                                                     p):
+    """``ProcessingUnit._prefill``'s shapes: ``bucket`` copies of one prompt,
+    its rows padded to ``max_len``, its prefix one (P, Hkv, hd) tensor
+    expanded over the batch with stride 0, at smollm-360m's widths."""
+    h, hkv, hd = CHUNK_WIDTHS[0]
+    q, pk, pv, k, v = _chunk_inputs(cuda, 1, p, h, hkv, hd, seed=bucket + p,
+                                    s=max_len)
+    pk, pv = (t.expand((bucket,) + t.shape[1:]) for t in (pk, pv))
+    q, k, v = (t.expand((bucket,) + t.shape[1:]).contiguous()
+               for t in (q, k, v))
+    assert pk.stride(0) == 0
+    n_rows = max_len - p - 3
+    got = chunk_attention_cuda(q, pk, pv, k, v, n_rows)
+    torch.cuda.synchronize()
+    _assert_within_rounding(got, q, pk, pv, k, v, n_rows)
+    assert all(torch.equal(got[0], got[i]) for i in range(1, bucket))
+
+
+def test_chunk_attention_bits_do_not_depend_on_the_cut(cuda):
+    """One prompt of 3,000 positions cut into chunks at different
+    boundaries, alone and beside another sequence: every position two
+    chunks share comes out with the same bits.  Padding rows and their K/V
+    are NaN, which reach no real row: no key past the last real row is
+    read."""
+    h, hkv, hd = 15, 5, 64
+    g = torch.Generator(device=cuda).manual_seed(3)
+    total = 3000
+    qa, ka, va = (torch.randn((total, n, hd), generator=g,
+                              device=cuda).bfloat16()
+                  for n in (h, hkv, hkv))
+
+    def chunk(p, n, other=None):
+        """Positions p .. p + n - 1 as a padded chunk after a p-token
+        prefix; ``other`` adds a second sequence in batch row 0."""
+        q, k, v = (torch.full((1, CHUNK_S) + t.shape[1:], float("nan"),
+                              dtype=torch.bfloat16, device=cuda)
+                   for t in (qa, ka, va))
+        q[0, :n], k[0, :n], v[0, :n] = qa[p:p + n], ka[p:p + n], va[p:p + n]
+        pk, pv = ka[None, :p], va[None, :p]
+        if other is not None:
+            q, k, v = (torch.cat([o, t]) for o, t in zip(other[:3],
+                                                         (q, k, v)))
+            pk = torch.cat([other[3], pk])
+            pv = torch.cat([other[4], pv])
+        out = chunk_attention_cuda(q.contiguous(), pk.contiguous(),
+                                   pv.contiguous(), k.contiguous(),
+                                   v.contiguous(), n)
+        return out[-1, :n]
+
+    oq, opk, opv, ok, ov = _chunk_inputs(cuda, 1, 1700, h, hkv, hd, seed=9)
+    cuts = [(1000, 1500, None), (1700, 300, None), (1717, 1, None),
+            (0, 2048, None), (1650, 1350, None),
+            (1700, 300, (oq, ok, ov, opk, opv))]
+    outs = [chunk(p, n, other) for p, n, other in cuts]
+    assert all(torch.isfinite(o.float()).all() for o in outs)
+    compared = 0
+    for i, j in itertools.combinations(range(len(cuts)), 2):
+        (pa, na, _), (pb, nb, _) = cuts[i], cuts[j]
+        lo, hi = max(pa, pb), min(pa + na, pb + nb)
+        if lo < hi:
+            assert torch.equal(outs[i][lo - pa:hi - pa],
+                               outs[j][lo - pb:hi - pb]), (cuts[i][:2],
+                                                           cuts[j][:2])
+            compared += 1
+    assert compared >= 8
+
+
+def test_chunk_attention_refuses_what_it_does_not_take(cuda):
+    q, pk, pv, k, v = _chunk_inputs(cuda, 1, 8, 4, 2, 80, seed=0, s=16)
+    with pytest.raises(ValueError, match="head_dim"):
+        chunk_attention_cuda(q, pk, pv, k, v, 16)
+    q, pk, pv, k, v = _chunk_inputs(cuda, 1, 8, 4, 2, 64, seed=0, s=16)
+    with pytest.raises(ValueError, match="n_rows"):
+        chunk_attention_cuda(q, pk, pv, k, v, 17)
+    with pytest.raises(ValueError, match="rows"):
+        chunk_attention_cuda(q, pk.transpose(1, 2).contiguous()
+                             .transpose(1, 2), pv, k, v, 16)
+    assert 64 in HEAD_DIMS and 128 in HEAD_DIMS
+
+
+def test_chunked_prefill_launches_the_kernel_per_layer(cuda):
+    """``chunk_prefill_fn`` on the card at the unit runner's shapes: one
+    kernel launch a layer, and no tensor of the padded (S x kv_len) score
+    tile, nor K/V padded to kv_len or expanded to every head: the chunk's
+    peak memory stays below a quarter of the bf16 tile of its heads."""
+    cfg = get_arch("smollm-360m").scaled(n_layers=2)
+    params = T.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                           cuda)
+    s, p, c, kv_len = 2048, 1900, 1000, 8448
+    rng = np.random.default_rng(0)
+    toks = torch.zeros((1, s), dtype=torch.long)
+    toks[0, :c] = torch.from_numpy(rng.integers(1, cfg.vocab, c))
+    shape = (cfg.n_layers, 1, p, cfg.n_kv_heads, cfg.resolved_head_dim)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    pk = torch.randn(shape, generator=g, device=cuda).bfloat16()
+    pv = torch.randn(shape, generator=g, device=cuda).bfloat16()
+    fn = T.chunk_prefill_fn(cfg)
+    fn(params, toks.to(cuda), pk, pv, last=c - 1, kv_len=kv_len)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with torch.no_grad():
+        logits, kn, vn = fn(params, toks.to(cuda), pk, pv, last=c - 1,
+                            kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert launch_counts()["chunk_attention"] == cfg.n_layers
+    tile = cfg.n_heads * s * kv_len * 2        # the bf16 score tile alone
+    assert torch.cuda.max_memory_allocated() - base < tile // 4
+    assert torch.isfinite(logits.float()).all()
+    assert kn.shape == vn.shape == (cfg.n_layers, 1, s, cfg.n_kv_heads,
+                                    cfg.resolved_head_dim)
+
+
+def test_engine_batched_equals_one_at_a_time_at_served_widths(cuda):
+    """smollm-360m's widths (15/5 heads of 64), two layers: prompts that
+    span several chunks, cut at other boundaries when requests share steps
+    than when each runs alone, give the same greedy tokens, and every
+    chunk's attention is the kernel's."""
+    cfg = get_arch("smollm-360m").scaled(n_layers=2)
+    params = T.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                           cuda)
+    rng = np.random.default_rng(11)
+    prompts = [tuple(int(x) for x in rng.integers(1, cfg.vocab,
+                                                   rng.integers(100, 500)))
+               for _ in range(6)]
+    bat = StepBatchingConfig(max_batch=4, step_token_budget=256)
+    tokens = []
+    for spacing in (1.0, 1000.0):
+        eng = ServingEngine(cfg, params, EngineConfig(
+            n_units=1, elasticity=None, merging="none", pruning=None,
+            result_cache=False, max_len=640, batching=bat), device=cuda)
+        reqs = [Request(prompt=p, n_new=6, deadline=1e9) for p in prompts]
+        reset_launch_counts()
+        stats = eng.run([(spacing * i, r) for i, r in enumerate(reqs)])
+        assert stats["completed"] == len(prompts)
+        assert launch_counts()["chunk_attention"] == \
+            cfg.n_layers * stats["chunk_launches"] > 0
+        tokens.append([r.tokens for r in reqs])
+    assert tokens[0] == tokens[1]
+
+
 def test_engine_disaggregated_equals_unified(cuda):
     """A prefill unit and a decode unit hand every sequence off, the KV
     blocks migrate, and the greedy tokens equal the unified one-unit run
@@ -1041,7 +1248,8 @@ def _tree_leaves(tree):
 
 
 @pytest.mark.parametrize("kernel", ["decode_attention",
-                                    "paged_decode_attention", "pmf_conv"])
+                                    "paged_decode_attention", "pmf_conv",
+                                    "chunk_attention"])
 def test_forward_only_kernels_refuse_to_cut_the_graph(cuda, kernel):
     """With grad mode on and an input that requires a gradient, a kernel
     without a backward raises instead of returning a tensor with no
@@ -1055,6 +1263,9 @@ def test_forward_only_kernels_refuse_to_cut_the_graph(cuda, kernel):
         fn = decode_attention_cuda
     elif kernel == "paged_decode_attention":
         args, fn = list(_paged(cuda, 2)), paged_decode_attention_cuda
+    elif kernel == "chunk_attention":
+        args = list(_chunk_inputs(cuda, 1, 8, 4, 2, 64, seed=0, s=16)) + [16]
+        fn = chunk_attention_cuda
     else:
         pet = torch.full((4, 8), 1 / 8, device=cuda)
         args = [pet, pet.clone(), torch.full((4,), 6.0, device=cuda)]
@@ -1064,4 +1275,4 @@ def test_forward_only_kernels_refuse_to_cut_the_graph(cuda, kernel):
         fn(*args)
     with torch.no_grad():
         fn(*args)
-    fn(*[a.detach() for a in args])
+    fn(*[a.detach() if torch.is_tensor(a) else a for a in args])

@@ -40,6 +40,8 @@ from repro_torch.bridge import to_tensor
 from repro_torch.core.pmf import PMF as TPMF
 from repro_torch.core.pmf import chance_of_success as t_chance_of_success
 from repro_torch.kernels import launch_counts, reset_launch_counts
+from repro_torch.kernels.chunk_attention.ops import (chunk_attention,
+                                                     chunk_attention_cuda)
 from repro_torch.kernels.decode_attention import ops as attn_ops
 from repro_torch.kernels.decode_attention.ops import (
     SPLIT_GRANULE, SPLIT_RANKS, decode_attention, decode_attention_cuda,
@@ -656,6 +658,14 @@ class _FakeCudaTensor:
 # the wrappers: plain version on the CPU, kernel or raise on the card
 # ---------------------------------------------------------------------------
 
+def _chunk_data():
+    """q (1, 8, 4, 32), a 3-row prefix and the chunk's K/V, 2 kv heads."""
+    g = torch.Generator().manual_seed(0)
+    return tuple(torch.randn(shape, generator=g).to(torch.bfloat16)
+                 for shape in ((1, 8, 4, 32), (1, 3, 2, 32), (1, 3, 2, 32),
+                               (1, 8, 2, 32), (1, 8, 2, 32)))
+
+
 class TestWrappers:
     def test_cpu_tensors_never_count_a_launch(self):
         reset_launch_counts()
@@ -666,7 +676,9 @@ class TestWrappers:
         rmsnorm(x, torch.ones((8,))).sum().backward()
         pet, pct, dl = _pmf_data(2, 4, 4)
         pmf_conv(*map(torch.from_numpy, (pet, pct, dl)))
-        assert launch_counts() == {"decode_attention": 0,
+        chunk_attention(*_chunk_data(), 5)
+        assert launch_counts() == {"chunk_attention": 0,
+                                   "decode_attention": 0,
                                    "paged_decode_attention": 0,
                                    "rmsnorm": 0, "rmsnorm_bwd": 0,
                                    "pmf_conv": 0}
@@ -678,7 +690,8 @@ class TestWrappers:
         (pmf_conv_cuda,
          lambda: tuple(map(torch.from_numpy, _pmf_data(2, 4, 4)))),
         (decode_attention_cuda,
-         lambda: _t(*_decode_data(1, 8, 4, 2, 16)))])
+         lambda: _t(*_decode_data(1, 8, 4, 2, 16))),
+        (chunk_attention_cuda, lambda: _chunk_data() + (5,))])
     def test_kernels_refuse_host_tensors(self, fn, args):
         with pytest.raises(ValueError):
             fn(*args())

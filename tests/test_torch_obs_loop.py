@@ -213,7 +213,8 @@ def test_same_record_same_fit_and_drift(cfg_kw, n_units, trace_kw):
     # the port's unit-runner launch counters stay 0 on a stub engine
     walls = ("mapping_wall_s", "pruning_wall_s")
     launches = ("chunk_launches", "chunk_rows", "chunk_cells",
-                "chunk_cells_launched", "decode_launches", "decode_rows")
+                "chunk_cells_launched", "chunk_attn_cells", "decode_launches",
+                "decode_rows")
     assert {k: v for k, v in record.items() if k != "stats"} == \
         {k: v for k, v in _json_roundtrip(ref.to_artifact()).items()
          if k != "stats"}

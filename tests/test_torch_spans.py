@@ -4,9 +4,10 @@ serving loop (DESIGN.md §2.9), on ``device="cpu"``:
 * ``Telemetry.span``: nested spans' totals and self times, the shared
   no-op span of ``NULL``, and no events;
 * the batched unit runner's counters (``chunk_launches``, ``chunk_rows``,
-  ``chunk_cells``, ``chunk_cells_launched``, ``decode_launches``,
-  ``decode_rows``) against the ``UnitBatch`` plans it ran and the shapes
-  it launched;
+  ``chunk_cells``, ``chunk_cells_launched``, ``chunk_attn_cells``,
+  ``decode_launches``, ``decode_rows``) against the ``UnitBatch`` plans it
+  ran, the shapes it launched and the tiles of the card's attention
+  kernel;
 * the wall stamps ``t_admit`` / ``t_first`` of the requests the runner
   answers, their difference in the histogram ``prefill_wait_s``, and no
   stamps on result-cache hits or the exclusive path;
@@ -24,6 +25,7 @@ import pytest
 import torch
 
 from repro_torch.configs.registry import get_arch
+from repro_torch.kernels.chunk_attention.ref import attended_cells
 from repro_torch.models import transformer as T
 from repro_torch.obs import NULL, NullTelemetry, Telemetry, clock_anchor
 from repro_torch.serving.batching import StepBatchingConfig
@@ -183,6 +185,19 @@ def test_launch_counters_equal_the_plans(tiny_model):
     assert len(launched) == len(chunks)
     assert stats["chunk_cells_launched"] == sum(launched) == \
         len(chunks) * BATCHING.step_token_budget * kv_len
+
+
+def test_attention_cells_equal_the_tiles_of_the_plans(tiny_model):
+    """``chunk_attn_cells`` is the kernel's tile count (``attended_cells``)
+    summed over the planned chunks, above the real cells (at these 16-row
+    chunks a 64 x 64 tile is larger than a launch, so no bound above)."""
+    reqs = [Request(prompt=p, n_new=3, deadline=1e9)
+            for p in _prompts(6, seed=11)]
+    _, stats, plans = _planned_run(tiny_model, reqs)
+    chunks = [pc for ch, _ in plans for pc in ch]
+    assert stats["chunk_attn_cells"] == \
+        sum(attended_cells(p, c) for p, c in chunks) > 0
+    assert stats["chunk_cells"] < stats["chunk_attn_cells"]
 
 
 def test_spans_on_and_off_give_the_same_tokens(tiny_model):
