@@ -77,6 +77,21 @@ Phases (any failure exits non-zero and prints no result line):
      rounds the probabilities and its output to bf16), the padding rows
      zeros; timed beside ``scaled_dot_product_attention`` over the real
      rows and their keys with the causal mask at the prefix's offset;
+   * the chunk kernel's latent instance (DeepSeek-V2-Lite: 16 heads, keys
+     192, values 128, its YaRN softmax scale) at the cell's chunk, 2,048
+     real rows after a 4,096-token prefix, and 1,000 after 11,000, the
+     chunk's K/V holding its real rows only: against its plain version in
+     f32, each element within twice its bf16 roundings, the padding rows
+     zeros; timed beside its plain version and
+     ``scaled_dot_product_attention`` with the same scale;
+   * the paged decode kernel's latent instance (``paged_decode_kernel
+     <Mla576>``: 16 heads over 576-wide latent rows, values their first
+     512) at the cell's decode step, B = 32 rows of 2,048-12,800 keys in
+     16-key pages dealt at random, page 0 poisoned: against
+     ``paged_mla_decode_attention_ref`` in f32, each element within twice
+     its bf16 roundings; table entries past a row's last page never read;
+     each row alone with the bits it has in the batch; timed beside its
+     plain version (no PyTorch call attends through block tables);
    * the floor of a launch: the library's empty kernel through the same
      ctypes route, device time and back-to-back wall a call.
 3. The batched path: a full-width smollm-360m ``ServingEngine`` with
@@ -162,6 +177,18 @@ Phases (any failure exits non-zero and prints no result line):
      logits within the larger of 5e-2 and the CPU's own movement under one
      bf16 ulp on the embedding table; the card's token the CPU's wherever
      the CPU's top-2 margin exceeds twice that.
+   5b. DeepSeek-V2-Lite at its published size (the benchmark cell
+   ``dsv2lite.longdoc16k.backlog``'s configuration and seeded weights:
+   27 layers, latent attention, 64 experts top-6 plus 2 shared) behind
+   the ``Router`` over one plane of the batched engine (chunked prefill,
+   paged decode, prefix cache) serves 8 prompts of 300-12,288 tokens and
+   a ninth repeating the first's first 1,600, 16 greedy tokens each, the
+   counters zeroed just before and read just after: every request done;
+   ``chunk_attention`` launched once a layer a chunk and
+   ``paged_mla_decode_attention`` once a layer a decode step, the dense
+   paged decode never; the prefix cache hits; the longest request's and
+   the hit's served tokens within the cell's limit of the plain f32
+   reference's best logits.
 6. The port's launcher, ``python -m repro_torch.launch.serve``, runs as a
    subprocess on the card with ``--record-out`` and must exit 0 and print
    a summary with completed > 0.
@@ -265,6 +292,7 @@ import ctypes
 import gc
 import itertools
 import json
+import math
 import os
 import re
 import shutil
@@ -1180,6 +1208,224 @@ def check_chunk_attention(mc) -> dict:
                      f"device cold [warm]; wall {full['wall']}"}
 
 
+#: DeepSeek-V2-Lite's attention: 16 heads, query/key width 192 (128 + 64),
+#: value width 128, latent rows of 576 (512 + 64) whose first 512 columns
+#: are the absorbed decode's values; its softmax scale 192^-1/2 times
+#: YaRN's mscale(40, 0.707) squared
+MLA_HEADS, MLA_QK, MLA_V, MLA_ROW, MLA_VALUES = 16, 192, 128, 576, 512
+MLA_SCALE = MLA_QK ** -0.5 * (0.1 * 0.707 * math.log(40) + 1) ** 2
+#: the latent chunk's timed shape (c real rows after a P-token prefix, as
+#: the cell's median prompt gives) and a long prefix near its 12,288 clip
+MLA_CHUNK_SHAPES = ((2048, 4096), (1000, 11000))
+#: the latent decode step's batch and its rows' key counts: the cell's
+#: ``max_batch`` over its prompts' 2,048-12,288 and the answers' 512
+MLA_DECODE_B, MLA_DECODE_KEYS = 32, (2048, 12800)
+
+
+def check_chunk_attention_mla() -> dict:
+    """The chunk kernel's latent instance (keys 192, values 128, the scale
+    passed in) at the cell's shapes, B = 1, the chunk's K/V holding its
+    real rows only (as the latent prefill passes them): against its plain
+    version in f32 over the real rows, each element within twice its
+    bf16 roundings (``check_chunk_attention``'s bound), zeros in the
+    padding rows.  Timed beside the plain version and
+    ``F.scaled_dot_product_attention`` with the same scale over the real
+    rows and their keys; the bound is the real rows' products at the bf16
+    tensor peak or their bytes at the HBM rate, whichever is longer."""
+    from repro_torch.kernels.chunk_attention.ops import chunk_attention_cuda
+    from repro_torch.kernels.chunk_attention.ref import (causal_cells,
+                                                         chunk_attention_ref)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 12)
+    h, hd, hv, s = MLA_HEADS, MLA_QK, MLA_V, CHUNK_BUDGET
+    worst, share, timed = 0.0, 0.0, []
+    for c, p in MLA_CHUNK_SHAPES:
+        def draw(*shape):
+            return torch.randn((CHUNK_LAYERS,) + shape, generator=g,
+                               device=dev).bfloat16()
+        q = draw(1, s, h, hd)
+        pk, pv, k, v = draw(1, p, h, hd), draw(1, p, h, hv), \
+            draw(1, c, h, hd), draw(1, c, h, hv)
+        name = f"chunk_attention (192, 128) c={c} P={p}"
+        got = chunk_attention_cuda(q[0], pk[0], pv[0], k[0], v[0], c,
+                                   MLA_SCALE)
+        f32 = [t[0].float() for t in (q, pk, pv, k, v)]
+        want = chunk_attention_ref(*f32, c, MLA_SCALE)[:, :c]
+        tol = 2.0 ** -8 * (chunk_attention_ref(
+            f32[0], f32[1], f32[2].abs(), f32[3], f32[4].abs(), c,
+            MLA_SCALE)[:, :c] + want.abs())
+        torch.cuda.synchronize()
+        if got.shape != (1, s, h, hv) or not torch.isfinite(got.float()).all():
+            raise AssertionError(f"{name}: output {tuple(got.shape)} is not "
+                                 f"(1, {s}, {h}, {hv}) and finite")
+        err = (got[:, :c].float() - want).abs()
+        if not (err <= tol).all():
+            raise AssertionError(
+                f"{name}: max |err| / bound {float((err / tol).max()):.3g}"
+                f" (max |err| {float(err.max()):.3g})")
+        if got[:, c:].any():
+            raise AssertionError(f"{name}: padding rows are not zeros")
+        worst = max(worst, float(err.max()))
+        share = max(share, float((err / tol).max()))
+        del want, tol, err, f32
+        qt = q[:, :, :c].transpose(2, 3).contiguous()
+        kt = torch.cat([pk, k], 2).transpose(2, 3).contiguous()
+        vt = torch.cat([pv, v], 2).transpose(2, 3).contiguous()
+        mask = (torch.arange(p + c, device=dev)[None, :]
+                <= torch.arange(c, device=dev)[:, None] + p)
+        it = iter(range(10 ** 9))
+
+        def kern():
+            i = next(it) % CHUNK_LAYERS
+            chunk_attention_cuda(q[i], pk[i], pv[i], k[i], v[i], c, MLA_SCALE)
+
+        def plain():
+            i = next(it) % CHUNK_LAYERS
+            chunk_attention_ref(q[i], pk[i], pv[i], k[i], v[i], c, MLA_SCALE)
+
+        def library():
+            i = next(it) % CHUNK_LAYERS
+            F.scaled_dot_product_attention(qt[i], kt[i], vt[i],
+                                           attn_mask=mask, scale=MLA_SCALE)
+
+        cells = causal_cells(p, c)
+        nbytes = 2 * h * (c * hd + s * hv + (p + c) * (hd + hv))
+        flops = 2.0 * h * (hd + hv) * cells
+        t_mem = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / H100_BF16_FLOPS * 1e3
+        timed.append({**timings(kern, plain, library, iters=10),
+                      "bound_ms": max(t_mem, t_ops),
+                      "bound_by": "operations" if t_ops >= t_mem else "bytes",
+                      "cells": cells, "c": c, "p": p})
+        del q, pk, pv, k, v, qt, kt, vt
+    main, long = timed
+    return {"name": "chunk_attention_mla", "counter": "chunk_attention",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/"
+                      "chunk_prefill_attention.cu",
+            "replaces": "none (the JAX package has no latent attention)",
+            "max_abs_err": worst, "err_share": share,
+            **{k: main[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "warm", "wall")},
+            "shape": f"B=1 H={h} keys {hd} values {hv} scale "
+                     f"{MLA_SCALE:.5f}, {s} rows of which c={main['c']} real "
+                     f"after P={main['p']}; long prefix c={long['c']} "
+                     f"P={long['p']}: kernel {long['ms']:.4f} "
+                     f"[{long['warm']['ms']:.4f}] ms, plain "
+                     f"{long['plain_ms']:.4f} ms, sdpa "
+                     f"{long['library_ms']:.4f} ms, bound "
+                     f"{long['bound_ms']:.5f} ms ({long['bound_by']}), "
+                     f"device cold [warm]; wall {long['wall']}"}
+
+
+def check_paged_mla() -> dict:
+    """The paged decode kernel's latent instance ``paged_decode_kernel
+    <Mla576>`` at the cell's decode step: B = 32 rows of 2,048-12,800
+    keys in 16-key pages dealt at random, page 0 poisoned.  Against
+    ``paged_mla_decode_attention_ref`` (f32) each element within twice its
+    two bf16 roundings (2^-9 of the attention of |values| for P, 2^-9 of
+    the output); each row alone in a batch of empty rows has the bits it
+    has in the batch; table entries past a row's last page are never
+    read.  Timed beside the plain version; no PyTorch call attends
+    through block tables, so the row has no yardstick.  The bound is the
+    bytes: each attended 1,152-byte latent row read once, q in, the
+    output out, tables and lengths."""
+    from repro_torch.kernels.decode_attention.ops import \
+        paged_mla_decode_attention_cuda
+    from repro_torch.kernels.decode_attention.ref import \
+        paged_mla_decode_attention_ref
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 13)
+    rng = np.random.default_rng(SEED + 13)
+    b, ps, (lo, hi) = MLA_DECODE_B, 16, MLA_DECODE_KEYS
+    lens = rng.integers(lo, hi + 1, size=b)
+    lens[0] = hi
+    mp = -(-hi // ps)
+    n_pages = int(sum(-(-int(n) // ps) for n in lens)) + 1
+    layers = 4      # timing walks them: the pages come from device memory
+    pages = torch.randn((layers, n_pages, ps, MLA_ROW), generator=g,
+                        device=dev).bfloat16()
+    pages[:, 0] = 1000.0
+    perm = rng.permutation(np.arange(1, n_pages))
+    tab = np.zeros((b, mp), np.int32)
+    at = 0
+    for i, n in enumerate(lens):
+        npg = -(-int(n) // ps)
+        tab[i, :npg] = perm[at:at + npg]
+        at += npg
+    tab = torch.from_numpy(tab).to(dev)
+    ln = torch.from_numpy(lens.astype(np.int32)).to(dev)
+    q = torch.randn((b, MLA_HEADS, MLA_ROW), generator=g,
+                    device=dev).bfloat16()
+    got = paged_mla_decode_attention_cuda(q, pages[0], tab, ln, MLA_SCALE)
+    want = paged_mla_decode_attention_ref(q.float(), pages[0].float(), tab,
+                                          ln, MLA_SCALE, MLA_VALUES).float()
+    # the attention of |values|: the same probabilities over |rows|
+    att_abs = torch.zeros_like(want)
+    for i in range(b):
+        n = int(lens[i])
+        rows = pages[0][tab[i, :-(-n // ps)].long()].reshape(
+            -1, MLA_ROW)[:n].float()
+        pr = torch.softmax(q[i].float() @ rows.T * MLA_SCALE, dim=-1)
+        att_abs[i] = pr @ rows[:, :MLA_VALUES].abs()
+    torch.cuda.synchronize()
+    tol = 2.0 ** -8 * (att_abs + want.abs())
+    err = (got.float() - want).abs()
+    if not (err <= tol).all():
+        raise AssertionError(f"paged_mla_decode_attention B={b}: max |err| "
+                             f"/ bound {float((err / tol).max()):.3g}")
+    poisoned = tab.clone()
+    for i, n in enumerate(lens):
+        poisoned[i, -(-int(n) // ps):] = 2 ** 30
+    if not torch.equal(paged_mla_decode_attention_cuda(
+            q, pages[0], poisoned, ln, MLA_SCALE), got):
+        raise AssertionError("paged_mla_decode_attention: table entries "
+                             "past the length leak")
+    for i in (0, b // 2, b - 1):
+        one = torch.zeros_like(ln)
+        one[0] = ln[i]
+        t1 = torch.zeros_like(tab)
+        t1[0] = tab[i]
+        q1 = torch.zeros_like(q)
+        q1[0] = q[i]
+        alone = paged_mla_decode_attention_cuda(q1, pages[0], t1, one,
+                                                MLA_SCALE)
+        if not torch.equal(alone[0], got[i]) or alone[1:].any():
+            raise AssertionError(f"paged_mla_decode_attention: row {i} "
+                                 f"alone differs from the batch")
+    it = iter(range(10 ** 9))
+
+    def kern():
+        i = next(it) % layers
+        paged_mla_decode_attention_cuda(q, pages[i], tab, ln, MLA_SCALE)
+
+    def plain():
+        i = next(it) % layers
+        paged_mla_decode_attention_ref(q, pages[i], tab, ln, MLA_SCALE,
+                                       MLA_VALUES)
+
+    keys = int(lens.sum())
+    nbytes = (keys * MLA_ROW * 2 + q.numel() * 2 + b * MLA_HEADS
+              * MLA_VALUES * 2 + tab.numel() * 4 + ln.numel() * 4)
+    flops = 2.0 * keys * MLA_HEADS * (MLA_ROW + MLA_VALUES)
+    t_mem = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / H100_BF16_FLOPS * 1e3
+    row = timings(kern, plain, iters=20)
+    return {"name": "paged_mla_decode_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
+            "replaces": "none (the JAX package has no latent attention)",
+            "max_abs_err": float(err.max()),
+            "err_share": float((err / tol).max()),
+            **{k: row[k] for k in ("ms", "plain_ms", "library_ms", "warm",
+                                   "wall")},
+            "bound_ms": max(t_mem, t_ops),
+            "bound_by": "operations" if t_ops >= t_mem else "bytes",
+            "shape": f"B={b} H={MLA_HEADS} rows {MLA_ROW} values "
+                     f"{MLA_VALUES} PS={ps} keys {keys} ({int(lens.min())}-"
+                     f"{int(lens.max())} a row)"}
+
+
 def success_wall_ms(n: int = 32, length: int = 64) -> float:
     """Wall ms a call of ``batched_success`` at (n, length), the scheduler's
     call: packing on the host, the copies and the kernel (each call waits
@@ -1206,9 +1452,13 @@ def launch_floor() -> dict:
 # phase 3: the batched path
 # ---------------------------------------------------------------------------
 
-#: the kernels each main path must launch
-BATCHED_KERNELS = ("chunk_attention", "paged_decode_attention", "rmsnorm",
-                   "pmf_conv")
+#: the kernels each main path must launch: the batched path's between
+#: smollm-360m's phase 3 and DeepSeek-V2-Lite's phase 5b (the latent
+#: instance of the paged decode kernel counts apart)
+BATCHED_KERNELS = ("chunk_attention", "paged_decode_attention",
+                   "paged_mla_decode_attention", "rmsnorm", "pmf_conv")
+#: the latent model's batched path launches no dense paged decode
+DSV2_KERNELS = ("chunk_attention", "paged_mla_decode_attention", "rmsnorm")
 ROUTER_KERNELS = ("decode_attention", "rmsnorm")
 
 def make_requests(vocab: int, spacing: float, deadline: float):
@@ -1267,7 +1517,7 @@ def serve(mc, params):
             raise AssertionError(f"request {r.rid}: {len(r.tokens)} "
                                  f"tokens, want {N_NEW}")
     for name in BATCHED_KERNELS:
-        if counts[name] == 0:
+        if name != "paged_mla_decode_attention" and counts[name] == 0:
             raise AssertionError(f"the batched path never launched {name}")
 
     # the same requests, one at a time, under the kernel profiler
@@ -2388,6 +2638,149 @@ def family_phase(smi: str) -> dict:
             f"{c['max_abs_err']:.4g} (limit {c['tol']:.4g}); greedy tokens "
             f"equal {c['equal']} of {c['tokens']}")
     return {"moe": moe, "rows": rows, "pairs": pairs, "peak": peak}
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: DeepSeek-V2-Lite through the batched Router at full size
+# ---------------------------------------------------------------------------
+
+#: the benchmark's DeepSeek-V2-Lite cell: its configuration, weights, plain
+#: reference and correctness limit
+DSV2_CELL = "dsv2lite.longdoc16k.backlog"
+#: phase 5b's prompts (the cell's 2,048-12,288 and a short one), each
+#: DSV2_NEW greedy tokens; one more request repeats the first prompt's
+#: first DSV2_SHARED tokens after it completes, so the prefix cache hits
+DSV2_PROMPTS = (2048, 12288, 300, 4100, 7000, 1500, 3000, 9000)
+DSV2_NEW, DSV2_SHARED = 16, 1600
+#: the prefix cache's blocks: every prompt of the phase, so none of the
+#: first prompt's blocks is evicted before the hit
+DSV2_CACHE_BLOCKS = 4096
+
+
+def dsv2_phase(smi: str) -> dict:
+    """Phase 5b: DeepSeek-V2-Lite at its published size (the benchmark
+    cell's configuration and seeded weights, 27 layers, 64 experts)
+    behind the ``Router`` over one plane of the batched engine
+    (``make_engine_planes``, ``StepBatchingConfig``, chunked prefill and
+    paged decode, the prefix cache on), the launch counters zeroed just
+    before and read just after: every request done with its tokens; each
+    chunk launches ``chunk_attention`` (its (192, 128) instance) once a
+    layer and each decode step the latent ``paged_mla_decode_attention``
+    once a layer, and no dense paged decode; the prefix cache hits; and
+    the served tokens of the longest request and the prefix hit lie within
+    the cell's limit of the plain f32 reference's best logits (its
+    check)."""
+    from repro_torch import kernels
+    from repro_torch.serving.batching import StepBatchingConfig
+    from repro_torch.serving.cluster import Router, make_engine_planes
+    from repro_torch.serving.engine import EngineConfig, Request
+
+    sys.path.insert(0, str(ROOT))
+    from perfbench import bench
+    cell = bench.Cell(bench.load_json(ROOT / "BENCHMARK.json"), DSV2_CELL)
+    limit = cell.settings["check"]["limit"]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = cell.family.make_weights(cell.conf, SEED, torch.device("cuda"))
+    mc = cell.family.port_config(cell.conf)
+    torch.cuda.synchronize()
+    log(f"phase 5b: {mc.name} through the batched Router ({smi}): "
+        f"{nbytes(params) / 1e9:.3f} GB of bf16 weights, "
+        f"{mc.n_layers} layers, drawn in {time.perf_counter() - t0:.1f} s")
+    max_len = max(DSV2_PROMPTS) + DSV2_NEW
+    ecfg = EngineConfig(
+        n_units=1, heuristic="EDF", merging="none", pruning=None,
+        result_cache=False, elasticity=None, max_len=max_len,
+        batch_buckets=(1,), prefix_cache=True, kv_block_size=16,
+        kv_cache_blocks=DSV2_CACHE_BLOCKS, prefix_max_prompt=max_len,
+        batching=StepBatchingConfig(max_batch=8, step_token_budget=2048))
+    router = Router(make_engine_planes(mc, params, ecfg, 1, device="cuda"),
+                    policy="least-loaded")
+    rng = np.random.default_rng(SEED + 5)
+    prompts = [tuple(int(x) for x in rng.integers(1, mc.vocab, n))
+               for n in DSV2_PROMPTS]
+    prompts.append(prompts[0][:DSV2_SHARED]
+                   + tuple(int(x) for x in rng.integers(1, mc.vocab, 200)))
+    trace = [(float(i), Request(prompt=p, n_new=DSV2_NEW, deadline=1e12))
+             for i, p in enumerate(prompts[:-1])]
+    trace.append((1e6, Request(prompt=prompts[-1], n_new=DSV2_NEW,
+                               deadline=1e12)))
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    router.run(trace)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    st = router.collect_stats()
+    reqs = [r for _, r in trace]
+    for r in reqs:
+        if r.status != "done" or len(r.tokens) != DSV2_NEW:
+            raise AssertionError(f"phase 5b: request {r.rid} ended as "
+                                 f"{r.status} with {len(r.tokens)} tokens, "
+                                 f"want done with {DSV2_NEW}")
+    for name in DSV2_KERNELS:
+        if counts[name] == 0:
+            raise AssertionError(f"phase 5b: the batched path never "
+                                 f"launched {name}")
+    if counts["chunk_attention"] != mc.n_layers * st["chunk_launches"]:
+        raise AssertionError(
+            f"phase 5b: chunk_attention launched {counts['chunk_attention']}"
+            f" times over {st['chunk_launches']} chunks, want {mc.n_layers}"
+            f" a chunk")
+    if counts["paged_mla_decode_attention"] != \
+            mc.n_layers * st["decode_launches"]:
+        raise AssertionError(
+            f"phase 5b: paged_mla_decode_attention launched "
+            f"{counts['paged_mla_decode_attention']} times over "
+            f"{st['decode_launches']} decode steps, want {mc.n_layers} a step")
+    if counts["paged_decode_attention"]:
+        raise AssertionError(f"phase 5b: the latent model launched the dense "
+                             f"paged decode {counts['paged_decode_attention']}"
+                             f" times")
+    if st["prefix_hits"] == 0:
+        raise AssertionError("phase 5b: the prefix cache recorded no hits")
+    peak = torch.cuda.max_memory_allocated()
+    del router
+    gc.collect()
+    t1 = time.perf_counter()
+    judged = [reqs[1], reqs[-1]]
+    with torch.no_grad():
+        gaps, _ = bench.logit_gaps(cell.reference, cell.conf, params,
+                                   [(r.prompt, r.tokens) for r in judged])
+    if max(gaps) > limit:
+        raise AssertionError(f"phase 5b: served tokens' logit gaps {gaps} "
+                             f"against the f32 reference, over the cell's "
+                             f"limit {limit}")
+    n_tok = sum(len(r.tokens) for r in reqs)
+    res = {"counts": counts, "wall_s": wall, "tokens_per_s": n_tok / wall,
+           "chunks": st["chunk_launches"], "decode_steps":
+           st["decode_launches"], "prefix_hits": st["prefix_hits"],
+           "prefix_tokens_reused": st["prefix_tokens_reused"],
+           "moe_real_rows": st["moe_real_rows"],
+           "mla_expand_tokens": st["mla_expand_tokens"], "gaps": gaps,
+           "limit": limit, "peak": peak,
+           "reference_s": time.perf_counter() - t1}
+    log(f"  {len(reqs)} requests (prompts {min(DSV2_PROMPTS)}-"
+        f"{max(DSV2_PROMPTS)} and a {len(prompts[-1])}-token prefix hit), "
+        f"{DSV2_NEW} greedy tokens each, in {wall:.2f} s: {res['chunks']} "
+        f"chunks, {res['decode_steps']} decode steps; launches "
+        f"chunk_attention {counts['chunk_attention']} = {mc.n_layers} x "
+        f"{res['chunks']}, paged_mla_decode_attention "
+        f"{counts['paged_mla_decode_attention']} = {mc.n_layers} x "
+        f"{res['decode_steps']}; prefix hits {res['prefix_hits']} "
+        f"({res['prefix_tokens_reused']} tokens reused); expert rows "
+        f"{res['moe_real_rows']}, latent tokens expanded "
+        f"{res['mla_expand_tokens']}")
+    log(f"  logit gaps of the longest request and the prefix hit against "
+        f"the f32 reference {', '.join(f'{x:.4f}' for x in gaps)} (limit "
+        f"{limit}; reference {res['reference_s']:.1f} s); "
+        f"torch.cuda.max_memory_allocated {peak / 2 ** 30:.3f} GiB")
+    log(f"  main-path kernel launches: {counts}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
 
 
 def run_launcher() -> dict:
@@ -3642,7 +4035,8 @@ def main() -> int:
     rows = [check_decode_attention(mc, ROUTER_MAX_LEN),
             check_paged_attention(mc, 1024, 8, 16),
             check_rmsnorm(mc, 8, 64), check_pmf_conv(),
-            check_chunk_attention(mc)]
+            check_chunk_attention(mc), check_chunk_attention_mla(),
+            check_paged_mla()]
     fa = check_family_attention(ROUTER_MAX_LEN)
     rows[0]["max_abs_err"] = max(rows[0]["max_abs_err"], fa["max_abs_err"])
     log(f"phase 2: kernels agree with their plain versions "
@@ -3756,6 +4150,9 @@ def main() -> int:
     t0 = time.perf_counter()
     fam = family_phase(smi)
     log(f"  phase 5 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ds = dsv2_phase(smi)
+    log(f"  phase 5b took {time.perf_counter() - t0:.1f} s")
     params = init_params(mc, torch.Generator(device="cuda").manual_seed(SEED),
                          "cuda")
 
@@ -3855,12 +4252,22 @@ def main() -> int:
         f"{FAMILY_REQ}, tokens/s {moe['tokens_per_s']:.2f}, median decode "
         f"step {moe['median_decode_step_ms']:.3f} ms, peak memory "
         f"{fam['peak'] / 2 ** 30:.3f} GiB; launches {moe['counts']}")
+    log(f"  {DSV2_CELL}'s model through the batched Router (phase 5b): "
+        f"{ds['chunks']} chunks, {ds['decode_steps']} decode steps, "
+        f"tokens/s {ds['tokens_per_s']:.2f}, logit gaps {ds['gaps']} (limit "
+        f"{ds['limit']}), peak memory {ds['peak'] / 2 ** 30:.3f} GiB; "
+        f"launches {ds['counts']}")
+    phases = (res["counts"], rr["counts"], wr["counts"], sc["counts"],
+              hp["counts"], moe["counts"], cal["counts"],
+              train["full"]["counts"], par["counts"], ex["counts"])
     for r in rows:
-        r["launches"] = sum(c[r["name"]] for c in (
-            res["counts"], rr["counts"], wr["counts"], sc["counts"],
-            hp["counts"], moe["counts"],
-            cal["counts"], train["full"]["counts"], par["counts"],
-            ex["counts"]))
+        if r.pop("counter", None):
+            # the chunk kernel's latent instance: phase 5b's chunks
+            r["launches"] = ds["counts"]["chunk_attention"]
+        else:
+            r["launches"] = sum(c[r["name"]] for c in phases) + (
+                0 if r["name"] == "chunk_attention"
+                else ds["counts"][r["name"]])
         r.pop("shape")
         r["wall_ms"] = r.pop("wall")["ms"]
         r["warm_ms"] = r.pop("warm")["ms"]

@@ -19,6 +19,38 @@ class MoEConfig:
     layer_period: int = 1        # MoE every k-th layer (1 = every layer)
     capacity_factor: float = 1.25
     group_size: int = 256        # GShard-style token group for dispatch
+    # port only (no JAX twin): the top-k gates renormalised to sum to 1
+    # (DeepSeek-MoE) or left as the softmax gave them (DeepSeek-V2), then
+    # scaled by ``routed_scaling_factor``
+    norm_topk_prob: bool = True
+    routed_scaling_factor: float = 1.0
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head latent attention (DeepSeek-V2, arXiv:2405.04434) without a
+    query compression, with YaRN RoPE on its rotary part.  Port only: the
+    JAX package has no latent attention."""
+    kv_lora_rank: int = 512      # the latent c_kv each token caches
+    qk_nope_head_dim: int = 128  # per-head query/key width without RoPE
+    qk_rope_head_dim: int = 64   # the rotary part, one key head shared
+    v_head_dim: int = 128
+    # YaRN (the published ``rope_scaling``)
+    rope_factor: float = 40.0
+    original_max_position: int = 4096
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 0.707
+    mscale_all_dim: float = 0.707
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+    @property
+    def latent_dim(self) -> int:
+        """Width of one cached token of one layer: [c_kv | k_pe]."""
+        return self.kv_lora_rank + self.qk_rope_head_dim
 
 
 @dataclass(frozen=True)
@@ -56,6 +88,7 @@ class ModelConfig:
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     moe: MoEConfig | None = None
+    mla: MLAConfig | None = None  # port only: latent attention
     ssm: SSMConfig | None = None
     xlstm: XLSTMConfig | None = None
     encoder_layers: int = 0      # enc-dec only
@@ -92,6 +125,9 @@ class ModelConfig:
         if self.moe:
             kw["moe"] = replace(self.moe, n_experts=4, top_k=min(self.moe.top_k, 2),
                                 d_ff_expert=64, group_size=32)
+        if self.mla:
+            kw["mla"] = replace(self.mla, kv_lora_rank=64, qk_nope_head_dim=32,
+                                qk_rope_head_dim=16, v_head_dim=32)
         if self.ssm:
             kw["ssm"] = replace(self.ssm, state_dim=16, chunk=16,
                                 attn_period=min(self.ssm.attn_period, 3)

@@ -4,6 +4,7 @@ from __future__ import annotations
 
 from .base import SHAPES, ModelConfig, ShapeConfig, shape_applicable
 from .deepseek_moe_16b import CONFIG as _deepseek
+from .deepseek_v2_lite import CONFIG as _deepseek_v2
 from .llama3_8b import CONFIG as _llama3
 from .llama4_maverick_400b import CONFIG as _llama4
 from .llava_next_34b import CONFIG as _llava
@@ -18,12 +19,17 @@ ARCHS: dict[str, ModelConfig] = {c.name: c for c in [
     _llava, _yi, _smollm, _qwen, _llama3, _seamless, _zamba, _deepseek,
     _llama4, _xlstm,
 ]}
+#: archs the port serves that the JAX package has no twin of (it has no
+#: latent attention); the dry-run cells (``all_cells``) cover ``ARCHS`` only
+PORT_ARCHS: dict[str, ModelConfig] = {c.name: c for c in [_deepseek_v2]}
 
 
 def get_arch(name: str) -> ModelConfig:
-    if name not in ARCHS:
-        raise KeyError(f"unknown arch {name!r}; have {sorted(ARCHS)}")
-    return ARCHS[name]
+    cfg = ARCHS.get(name, PORT_ARCHS.get(name))
+    if cfg is None:
+        raise KeyError(f"unknown arch {name!r}; have "
+                       f"{sorted(ARCHS) + sorted(PORT_ARCHS)}")
+    return cfg
 
 
 def get_shape(name: str) -> ShapeConfig:

@@ -5,6 +5,7 @@
 | chunked-prefill attention | CUDA C++ | ``csrc/chunk_prefill_attention.cu`` | (none: the JAX cached prefill is plain jnp ``full_attention``) |
 | decode attention | CUDA C++ | ``csrc/decode_attention.cu`` | ``decode_attention_pallas`` |
 | paged decode attention | CUDA C++ | ``csrc/paged_decode_attention.cu`` | ``paged_decode_attention_pallas`` |
+| its latent (MLA) instance | CUDA C++ | ``csrc/paged_decode_attention.cu`` | (none: the JAX package has no latent attention) |
 | RMSNorm | CUDA C++ | ``csrc/rmsnorm.cu`` | ``rmsnorm_pallas`` |
 | RMSNorm backward | CUDA C++ | ``csrc/rmsnorm.cu`` | (the gradient of ``rmsnorm_pallas``; no TPU kernel) |
 | PMF convolution | CUDA C++ | ``csrc/pmf_conv.cu`` | ``pmf_conv_pallas`` |
@@ -25,12 +26,14 @@ from __future__ import annotations
 def _wrappers() -> dict:
     from .chunk_attention.ops import chunk_attention_cuda
     from .decode_attention.ops import (decode_attention_cuda,
-                                       paged_decode_attention_cuda)
+                                       paged_decode_attention_cuda,
+                                       paged_mla_decode_attention_cuda)
     from .pmf_conv.ops import pmf_conv_cuda
     from .rmsnorm.ops import rmsnorm_bwd_cuda, rmsnorm_cuda
     return {"chunk_attention": chunk_attention_cuda,
             "decode_attention": decode_attention_cuda,
             "paged_decode_attention": paged_decode_attention_cuda,
+            "paged_mla_decode_attention": paged_mla_decode_attention_cuda,
             "rmsnorm": rmsnorm_cuda, "rmsnorm_bwd": rmsnorm_bwd_cuda,
             "pmf_conv": pmf_conv_cuda}
 

@@ -40,12 +40,14 @@ _IP = ctypes.POINTER(ctypes.c_int)
 SIGNATURES = {
     "chunk_attention_geometry": [_IP, _IP],
     "chunk_attention_bf16": [_P, _P, _P, _P, _P, _P, _L, _L, _L, _L,
-                             _I, _I, _I, _I, _I, _I, _I, _F, _P],
+                             _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "decode_attention_geometry": [_IP, _IP],
     "decode_attention_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               _F, _P],
     "paged_decode_attention_bf16": [_P, _P, _P, _P, _P, _P,
                                     _I, _I, _I, _I, _I, _I, _F, _P],
+    "paged_mla_decode_attention_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _F,
+                                        _P],
     "pmf_conv_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "rmsnorm_bf16": [_P, _P, _P, _I, _I, _F, _P],
     "rmsnorm_f32": [_P, _P, _P, _I, _I, _F, _P],

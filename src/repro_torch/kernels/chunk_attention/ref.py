@@ -7,7 +7,10 @@
 Chunk row r of a chunk after a P-token prefix sits at absolute position
 P + r and attends to keys 0 .. P + r: prefix row j is key j, chunk row i
 is key P + i.  Only the first ``n_rows`` rows are real; the rest trail as
-padding and come out as zeros.
+padding and come out as zeros.  The chunk's K/V hold at least its real
+rows (no key past them is read).  Queries and keys are ``hd`` wide, values
+``hd_v`` (the same but for latent attention's 192 and 128), and the scores
+are scaled by ``scale`` (1/sqrt(hd) when None).
 """
 
 from __future__ import annotations
@@ -58,19 +61,20 @@ def _keys(pk, pv, k, v, groups: int):
             vv.repeat_interleave(groups, dim=2))
 
 
-def chunk_attention_ref(q, pk, pv, k, v, n_rows: int):
-    """q (B, S, H, hd); pk/pv (B, P, Hkv, hd); k/v (B, S, Hkv, hd) ->
-    (B, S, H, hd) in q's dtype.
+def chunk_attention_ref(q, pk, pv, k, v, n_rows: int, scale=None):
+    """q (B, S, H, hd); pk (B, P, Hkv, hd), pv (B, P, Hkv, hd_v); k/v
+    (B, n, Hkv, ...) with n >= n_rows -> (B, S, H, hd_v) in q's dtype.
 
     The formula in f32 throughout: every chunk row attends causally over
     the prefix and the chunk; rows at or past ``n_rows`` are zeros."""
     b, s, h, hd = q.shape
     p = pk.shape[1]
+    scale = 1.0 / math.sqrt(hd) if scale is None else scale
+    k, v = k[:, :n_rows], v[:, :n_rows]
     kk, vv = _keys(pk, pv, k, v, h // k.shape[2])
-    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), kk.float()) \
-        / math.sqrt(hd)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), kk.float()) * scale
     qpos = torch.arange(s, device=q.device)[:, None] + p
-    kpos = torch.arange(p + s, device=q.device)[None, :]
+    kpos = torch.arange(p + n_rows, device=q.device)[None, :]
     scores = scores.masked_fill(kpos > qpos, float("-inf"))
     out = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(scores, dim=-1),
                        vv.float())
@@ -78,7 +82,7 @@ def chunk_attention_ref(q, pk, pv, k, v, n_rows: int):
     return out.to(q.dtype)
 
 
-def chunk_attention_tiled_ref(q, pk, pv, k, v, n_rows: int):
+def chunk_attention_tiled_ref(q, pk, pv, k, v, n_rows: int, scale=None):
     """The kernel's algorithm in f32, one row tile at a time.
 
     Row tile i walks ``key_tiles(P, n_rows, i)`` key tiles from absolute
@@ -91,8 +95,9 @@ def chunk_attention_tiled_ref(q, pk, pv, k, v, n_rows: int):
     b, s, h, hd = q.shape
     p = pk.shape[1]
     kk, vv = _keys(pk, pv, k, v, h // k.shape[2])
-    scale = 1.0 / math.sqrt(hd)
-    out = torch.zeros((b, s, h, hd), dtype=torch.float32, device=q.device)
+    scale = 1.0 / math.sqrt(hd) if scale is None else scale
+    hd_v = v.shape[-1]
+    out = torch.zeros((b, s, h, hd_v), dtype=torch.float32, device=q.device)
     for i in range(row_tiles(n_rows)):
         rows = slice(i * BLOCK_M, min((i + 1) * BLOCK_M, n_rows))
         qt = q[:, rows].float()
@@ -100,7 +105,7 @@ def chunk_attention_tiled_ref(q, pk, pv, k, v, n_rows: int):
         last = p + rows.stop - 1
         m = torch.full((b, h, qt.shape[1]), float("-inf"), device=q.device)
         l = torch.zeros_like(m)
-        acc = torch.zeros((b, h, qt.shape[1], hd), device=q.device)
+        acc = torch.zeros((b, h, qt.shape[1], hd_v), device=q.device)
         for t in range(key_tiles(p, n_rows, i)):
             keys = slice(t * BLOCK_N, min((t + 1) * BLOCK_N, last + 1))
             sc = torch.einsum("bqhd,bkhd->bhqk", qt,

@@ -11,9 +11,11 @@
 // are a small causal corner of it.
 //
 // What it computes.  q (B, S, H, hd) after RoPE; the prefix's K/V
-// (B, P, Hkv, hd) and the chunk's own K/V (B, S, Hkv, hd), read where they
-// lie (no concatenation, no padding, no expansion: query head h reads kv
-// head h / (H / Hkv)).  Chunk row r sits at absolute position P + r and
+// (B, P, Hkv, hd) and the chunk's own K/V (B, >= n_rows, Hkv, hd), read
+// where they lie (no concatenation, no padding, no expansion: query head h
+// reads kv head h / (H / Hkv)).  Values may be narrower than queries and
+// keys (DeepSeek-V2's latent attention decompresses to keys of 192 and
+// values of 128), and the softmax scale is the caller's.  Chunk row r sits at absolute position P + r and
 // attends to keys 0 .. P + r, key j being prefix row j for j < P and chunk
 // row j - P after.  Only the first `n_rows` rows are real; the rest trail
 // as padding and get zeros, and no key past the last real row's position
@@ -75,13 +77,13 @@ constexpr float kLog2e = 1.4426950408889634f;
 struct Args {
   const __nv_bfloat16* q;    // (B, S, H, hd), contiguous
   const __nv_bfloat16* pk;   // (B, P, Hkv, hd), rows contiguous
-  const __nv_bfloat16* pv;
-  const __nv_bfloat16* k;    // (B, S, Hkv, hd), rows contiguous
-  const __nv_bfloat16* v;
-  __nv_bfloat16* out;        // (B, S, H, hd), contiguous
+  const __nv_bfloat16* pv;   // (B, P, Hkv, hd_v), rows contiguous
+  const __nv_bfloat16* k;    // (B, >= n_rows, Hkv, hd), rows contiguous
+  const __nv_bfloat16* v;    // (B, >= n_rows, Hkv, hd_v), rows contiguous
+  __nv_bfloat16* out;        // (B, S, H, hd_v), contiguous
   long long pk_b, pv_b, k_b, v_b;   // batch strides, in elements
   int s, p, n_rows, h, hkv, group;
-  float scale_log2;          // 1 / sqrt(hd) * log2(e)
+  float scale_log2;          // the softmax scale times log2(e)
 };
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -136,36 +138,43 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-template <int HD>
+// HD: query and key width; HDV: value width (HD for every family but
+// latent attention's 192 / 128).
+template <int HD, int HDV>
 constexpr int smem_bytes() {
-  return (kBlockM + 4 * kBlockN) * (HD + kPad) * 2;
+  return ((kBlockM + 2 * kBlockN) * (HD + kPad) +
+          2 * kBlockN * (HDV + kPad)) * 2;
 }
 
-template <int HD>
+template <int HD, int HDV>
 __global__ void __launch_bounds__(kThreads)
 chunk_attention_kernel(const Args a) {
-  constexpr int LD = HD + kPad;          // shared row stride, in bf16
-  constexpr int VEC = HD / 8;            // 16-byte pieces of a row
+  constexpr int LD = HD + kPad;          // shared row stride of q, K (bf16)
+  constexpr int LDV = HDV + kPad;        // shared row stride of V
+  constexpr int VEC = HD / 8;            // 16-byte pieces of a q or K row
+  constexpr int VECV = HDV / 8;          // of a V row
   constexpr int KSTEPS = HD / 16;        // k16 steps of q . k
-  constexpr int NT = HD / 8;             // n8 tiles of the output
+  constexpr int NT = HDV / 8;            // n8 tiles of the output
+  constexpr int STAGE = kBlockN * (LD + LDV);   // one ring stage: K, V
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* skv = sq + kBlockM * LD;   // [stage][K, V][kBlockN][LD]
+  __nv_bfloat16* skv = sq + kBlockM * LD;   // [stage][K (LD), V (LDV)]
 
   const int r0 = (gridDim.x - 1 - blockIdx.x) * kBlockM;  // heaviest first
   const int head = blockIdx.y, b = blockIdx.z;
   const int kvh = head / a.group;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const size_t q_row = (size_t)a.h * HD, kv_row = (size_t)a.hkv * HD;
+  const size_t q_row = (size_t)a.h * HD, o_row = (size_t)a.h * HDV;
+  const size_t k_row = (size_t)a.hkv * HD, v_row = (size_t)a.hkv * HDV;
   const __nv_bfloat16* qb = a.q + (size_t)b * a.s * q_row + head * HD;
-  __nv_bfloat16* ob = a.out + (size_t)b * a.s * q_row + head * HD;
+  __nv_bfloat16* ob = a.out + (size_t)b * a.s * o_row + head * HDV;
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
 
   if (r0 >= a.n_rows) {       // padding rows only: zeros, nothing read
-    for (int i = tid; i < kBlockM * VEC; i += kThreads) {
-      const int r = r0 + i / VEC;
+    for (int i = tid; i < kBlockM * VECV; i += kThreads) {
+      const int r = r0 + i / VECV;
       if (r < a.s)
-        *reinterpret_cast<uint4*>(ob + r * q_row + (i % VEC) * 8) = zero;
+        *reinterpret_cast<uint4*>(ob + r * o_row + (i % VECV) * 8) = zero;
     }
     return;
   }
@@ -174,9 +183,9 @@ chunk_attention_kernel(const Args a) {
   const int kmax = a.p + min(r0 + kBlockM, a.n_rows) - 1;
   const int n_tiles = kmax / kBlockN + 1;
   const __nv_bfloat16* pkb = a.pk + (size_t)b * a.pk_b + kvh * HD;
-  const __nv_bfloat16* pvb = a.pv + (size_t)b * a.pv_b + kvh * HD;
+  const __nv_bfloat16* pvb = a.pv + (size_t)b * a.pv_b + kvh * HDV;
   const __nv_bfloat16* kb = a.k + (size_t)b * a.k_b + kvh * HD;
-  const __nv_bfloat16* vb = a.v + (size_t)b * a.v_b + kvh * HD;
+  const __nv_bfloat16* vb = a.v + (size_t)b * a.v_b + kvh * HDV;
 
   // the block's query rows, padding rows as zeros
   for (int i = tid; i < kBlockM * VEC; i += kThreads) {
@@ -188,24 +197,27 @@ chunk_attention_kernel(const Args a) {
 
   // key tile t (absolute keys t * kBlockN ..) into ring stage t & 1
   auto load_tile = [&](int t) {
-    __nv_bfloat16* dk = skv + (size_t)(t & 1) * 2 * kBlockN * LD;
+    __nv_bfloat16* dk = skv + (size_t)(t & 1) * STAGE;
     __nv_bfloat16* dv = dk + kBlockN * LD;
     for (int i = tid; i < kBlockN * VEC; i += kThreads) {
       const int j = i / VEC, c = (i % VEC) * 8, key = t * kBlockN + j;
-      const __nv_bfloat16 *src_k = a.k, *src_v = a.v;
+      const __nv_bfloat16* src = a.k;
       int bytes = 0;
       if (key <= kmax) {
         bytes = 16;
-        if (key < a.p) {
-          src_k = pkb + key * kv_row + c;
-          src_v = pvb + key * kv_row + c;
-        } else {
-          src_k = kb + (key - a.p) * kv_row + c;
-          src_v = vb + (key - a.p) * kv_row + c;
-        }
+        src = key < a.p ? pkb + key * k_row + c : kb + (key - a.p) * k_row + c;
       }
-      cp_async16(dk + j * LD + c, src_k, bytes);
-      cp_async16(dv + j * LD + c, src_v, bytes);
+      cp_async16(dk + j * LD + c, src, bytes);
+    }
+    for (int i = tid; i < kBlockN * VECV; i += kThreads) {
+      const int j = i / VECV, c = (i % VECV) * 8, key = t * kBlockN + j;
+      const __nv_bfloat16* src = a.v;
+      int bytes = 0;
+      if (key <= kmax) {
+        bytes = 16;
+        src = key < a.p ? pvb + key * v_row + c : vb + (key - a.p) * v_row + c;
+      }
+      cp_async16(dv + j * LDV + c, src, bytes);
     }
     cp_async_commit();
   };
@@ -239,7 +251,7 @@ chunk_attention_kernel(const Args a) {
     }
     const int key0 = t * kBlockN;
     if (key0 > w_kmax) continue;         // wholly past this warp's rows
-    const __nv_bfloat16* sk = skv + (size_t)(t & 1) * 2 * kBlockN * LD;
+    const __nv_bfloat16* sk = skv + (size_t)(t & 1) * STAGE;
     const __nv_bfloat16* sv = sk + kBlockN * LD;
 
     // scores of the warp's 16 rows against the tile's 64 keys
@@ -312,10 +324,10 @@ chunk_attention_kernel(const Args a) {
                               pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
                               pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
-      for (int np = 0; np < HD / 16; ++np) {
+      for (int np = 0; np < HDV / 16; ++np) {
         uint32_t vf[4];
         ldmatrix_x4_trans(vf, sv + (kk * 16 + (lane & 7) +
-                                    ((lane >> 3) & 1) * 8) * LD +
+                                    ((lane >> 3) & 1) * 8) * LDV +
                                   np * 16 + (lane >> 4) * 8);
         mma_bf16(o[2 * np], pa, vf[0], vf[1]);
         mma_bf16(o[2 * np + 1], pa, vf[2], vf[3]);
@@ -325,7 +337,8 @@ chunk_attention_kernel(const Args a) {
   cp_async_wait<0>();
 
   // the row sums over the quad, then o / l through this warp's rows of the
-  // query stage (read only by this warp), out in 16-byte stores
+  // query stage (read only by this warp; rows of LDV <= LD), out in
+  // 16-byte stores
   l_a += __shfl_xor_sync(0xffffffffu, l_a, 1);
   l_a += __shfl_xor_sync(0xffffffffu, l_a, 2);
   l_b += __shfl_xor_sync(0xffffffffu, l_b, 1);
@@ -336,33 +349,34 @@ chunk_attention_kernel(const Args a) {
 #pragma unroll
   for (int n = 0; n < NT; ++n) {
     const int c = n * 8 + 2 * (lane & 3);
-    *reinterpret_cast<__nv_bfloat162*>(so + (lane >> 2) * LD + c) =
+    *reinterpret_cast<__nv_bfloat162*>(so + (lane >> 2) * LDV + c) =
         real_a ? __floats2bfloat162_rn(o[n][0] / l_a, o[n][1] / l_a)
                : __floats2bfloat162_rn(0.f, 0.f);
-    *reinterpret_cast<__nv_bfloat162*>(so + ((lane >> 2) + 8) * LD + c) =
+    *reinterpret_cast<__nv_bfloat162*>(so + ((lane >> 2) + 8) * LDV + c) =
         real_b ? __floats2bfloat162_rn(o[n][2] / l_b, o[n][3] / l_b)
                : __floats2bfloat162_rn(0.f, 0.f);
   }
   __syncwarp();
-  for (int i = lane; i < 16 * VEC; i += 32) {
-    const int j = i / VEC, c = (i % VEC) * 8, r = wr0 + j;
+  for (int i = lane; i < 16 * VECV; i += 32) {
+    const int j = i / VECV, c = (i % VECV) * 8, r = wr0 + j;
     if (r < a.s)
-      *reinterpret_cast<uint4*>(ob + r * q_row + c) =
-          *reinterpret_cast<const uint4*>(so + j * LD + c);
+      *reinterpret_cast<uint4*>(ob + r * o_row + c) =
+          *reinterpret_cast<const uint4*>(so + j * LDV + c);
   }
 }
 
-template <int HD>
+template <int HD, int HDV>
 cudaError_t launch(const Args& a, int batch, void* stream) {
-  constexpr int smem = smem_bytes<HD>();
+  constexpr int smem = smem_bytes<HD, HDV>();
   if (smem > 48 * 1024) {       // set on every launch: it is per device
     const cudaError_t e = cudaFuncSetAttribute(
-        chunk_attention_kernel<HD>,
+        chunk_attention_kernel<HD, HDV>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
   }
   dim3 grid((a.s + kBlockM - 1) / kBlockM, a.h, batch);
-  chunk_attention_kernel<HD><<<grid, kThreads, smem, (cudaStream_t)stream>>>(a);
+  chunk_attention_kernel<HD, HDV>
+      <<<grid, kThreads, smem, (cudaStream_t)stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -376,15 +390,17 @@ extern "C" int chunk_attention_geometry(int* block_m, int* block_n) {
   return 0;
 }
 
-// q, out (B, S, H, hd) contiguous; pk, pv (B, P, Hkv, hd) and k, v
-// (B, S, Hkv, hd) with contiguous rows of Hkv * hd and the given batch
-// strides; every pointer and stride 16-byte aligned (the Python wrapper
-// checks); hd one of 32, 64, 128; 0 <= n_rows <= S.
+// q (B, S, H, hd) and out (B, S, H, hd_v) contiguous; pk (B, P, Hkv, hd),
+// pv (B, P, Hkv, hd_v), k (B, >= n_rows, Hkv, hd) and v (B, >= n_rows,
+// Hkv, hd_v) with contiguous rows and the given batch strides; every
+// pointer and stride 16-byte aligned (the Python wrapper checks);
+// (hd, hd_v) one of (32, 32), (64, 64), (128, 128), (192, 128);
+// 0 <= n_rows <= S; `scale` multiplies the scores.
 extern "C" int chunk_attention_bf16(
     const void* q, const void* pk, const void* pv, const void* k,
     const void* v, void* out, long long pk_b, long long pv_b, long long k_b,
     long long v_b, int batch, int s, int p, int n_rows, int h, int hkv,
-    int hd, float scale, void* stream) {
+    int hd, int hd_v, float scale, void* stream) {
   if (batch < 1 || s < 1 || p < 0 || n_rows < 0 || n_rows > s || hkv < 1 ||
       h % hkv)
     return (int)cudaErrorInvalidValue;
@@ -393,10 +409,14 @@ extern "C" int chunk_attention_bf16(
                (const __nv_bfloat16*)v,  (__nv_bfloat16*)out,
                pk_b, pv_b, k_b, v_b, s, p, n_rows, h, hkv, h / hkv,
                scale * kLog2e};
-  switch (hd) {
-    case 32: return (int)launch<32>(a, batch, stream);
-    case 64: return (int)launch<64>(a, batch, stream);
-    case 128: return (int)launch<128>(a, batch, stream);
-    default: return (int)cudaErrorInvalidValue;
+  if (hd == hd_v) {
+    switch (hd) {
+      case 32: return (int)launch<32, 32>(a, batch, stream);
+      case 64: return (int)launch<64, 64>(a, batch, stream);
+      case 128: return (int)launch<128, 128>(a, batch, stream);
+      default: return (int)cudaErrorInvalidValue;
+    }
   }
+  if (hd == 192 && hd_v == 128) return (int)launch<192, 128>(a, batch, stream);
+  return (int)cudaErrorInvalidValue;
 }

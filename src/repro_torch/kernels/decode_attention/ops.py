@@ -10,6 +10,10 @@ Both kernels split each (sequence, kv head) over a cluster of
 ``SPLIT_RANKS`` blocks, dealing its keys round robin in granules of
 ``SPLIT_GRANULE`` keys (the contiguous kernel) or one page (the paged
 kernel); ``ref.py``'s split versions model that partition on the host.
+
+``paged_mla_decode_attention`` is the latent-attention instance of the
+paged kernel (DeepSeek-V2's absorbed decode): one 576-wide latent row a
+key, shared by 16 query heads, its first 512 columns the values.
 """
 
 from __future__ import annotations
@@ -21,14 +25,16 @@ import math
 import torch
 
 from ..build import check, current_stream, library, refuse_grad
-from .ref import (SPLIT_GRANULE, SPLIT_RANKS, attended_keys,
-                  decode_attention_ref, paged_decode_attention_ref)
+from .ref import (MLA_SHAPE, SPLIT_GRANULE, SPLIT_RANKS, attended_keys,
+                  decode_attention_ref, paged_decode_attention_ref,
+                  paged_mla_decode_attention_ref)
 from ...obs.profiling import profiled
 from ...parallel import op_cost
 
 __all__ = ["SPLIT_GRANULE", "SPLIT_RANKS", "decode_attention",
            "decode_attention_cuda", "paged_decode_attention",
-           "paged_decode_attention_cuda", "tune_block_s"]
+           "paged_decode_attention_cuda", "paged_mla_decode_attention",
+           "paged_mla_decode_attention_cuda", "tune_block_s"]
 
 
 @functools.cache
@@ -211,3 +217,75 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths):
     lengths (B,) -> (B, H, hd)."""
     return profiled("paged_decode_attention", _paged_decode_attention,
                     q, k_pages, v_pages, block_tables, lengths)
+
+
+def paged_mla_decode_attention_cuda(q, pages, block_tables, lengths,
+                                    scale: float):
+    """The CUDA kernel's latent instance.  q (B, 16, 576) bf16 (the
+    absorbed queries [q~ | q_pe]); pages (NP, PS, 576) bf16 latent rows;
+    block_tables (B, MP) int32; lengths (B,) int32 -> (B, 16, 512) bf16:
+    softmax(scale q . row) over the first ``lengths[b]`` rows of the
+    sequence's pages, times their first 512 columns.  PS must divide 32;
+    table entries past a sequence's last page are never read, and a row
+    of length 0 gets zeros.  Forward only: raises where autograd would
+    record it."""
+    refuse_grad("paged_mla_decode_attention_cuda", q, pages)
+    g, kw, vw = MLA_SHAPE
+    if pages.dim() != 3 or pages.shape[2] != kw:
+        raise ValueError(f"pages must be (NP, PS, {kw}), not "
+                         f"{tuple(pages.shape)}")
+    np_, ps, _ = pages.shape
+    b = q.shape[0]
+    if q.dim() != 3 or tuple(q.shape[1:]) != (g, kw):
+        raise ValueError(f"q must be (B, {g}, {kw}), not {tuple(q.shape)}")
+    if 32 % ps:
+        raise ValueError(f"the kernel takes pages of a divisor of 32 keys, "
+                         f"not {ps}")
+    if block_tables.dim() != 2 or block_tables.shape[0] != b \
+            or lengths.shape != (b,):
+        raise ValueError("block_tables (B, MP) and lengths (B,) must match q")
+    _check_cuda(("q", q, torch.bfloat16), ("pages", pages, torch.bfloat16),
+                ("block_tables", block_tables, torch.int32),
+                ("lengths", lengths, torch.int32))
+    if (q.data_ptr() | pages.data_ptr()) % 16:
+        raise ValueError("q and the pages must be 16-byte aligned")
+    out = q.new_empty((b, g, vw))
+    err = _library().paged_mla_decode_attention_bf16(
+        q.data_ptr(), pages.data_ptr(), block_tables.data_ptr(),
+        lengths.data_ptr(), out.data_ptr(), b, ps, block_tables.shape[1],
+        float(scale), current_stream(q.device))
+    paged_mla_decode_attention_cuda.launches += 1
+    if op_cost.active():
+        n = op_cost.untracked(lambda: int(lengths.sum()))
+        op_cost.credit("paged_decode_attention", (), (),
+                       flops=2.0 * n * g * (kw + vw),
+                       nbytes=q.nbytes + out.nbytes + n * kw * q.element_size()
+                       + op_cost.tensor_bytes((lengths, block_tables)))
+    check(err, "paged_mla_decode_attention")
+    return out
+
+
+paged_mla_decode_attention_cuda.launches = 0
+
+
+def _paged_mla_decode_attention(q, pages, block_tables, lengths, scale,
+                                v_dim):
+    if q.is_cuda:
+        if v_dim != MLA_SHAPE[2]:
+            raise ValueError(f"the kernel's values are the first "
+                             f"{MLA_SHAPE[2]} columns, not {v_dim}")
+        return paged_mla_decode_attention_cuda(q, pages, block_tables,
+                                               lengths, scale)
+    return paged_mla_decode_attention_ref(q, pages, block_tables, lengths,
+                                          scale, v_dim)
+
+
+def paged_mla_decode_attention(q, pages, block_tables, lengths,
+                               scale: float, v_dim: int):
+    """q (B, H, r + dr); pages (NP, PS, r + dr); block_tables (B, MP);
+    lengths (B,) -> (B, H, v_dim = r): the absorbed latent attention over
+    the pages (the kernel at DeepSeek-V2-Lite's ``MLA_SHAPE``; the plain
+    version at any size on the CPU).  Profiled as the paged decode
+    attention: it is that kernel's latent instance."""
+    return profiled("paged_decode_attention", _paged_mla_decode_attention,
+                    q, pages, block_tables, lengths, scale, v_dim)

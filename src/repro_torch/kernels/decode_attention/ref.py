@@ -163,3 +163,32 @@ def paged_decode_attention_split_ref(q, k_pages, v_pages, block_tables,
         v = v_pages[pages].reshape(-1, hkv, hd)
         out.append(_split_attend(qg[i], k, v, n, ps))
     return torch.stack(out).reshape(b, h, hd).to(q.dtype)
+
+
+#: (query heads, latent row width, value width) of the paged kernel's
+#: latent instance: DeepSeek-V2-Lite's 16 heads over [c_kv (512) | k_pe
+#: (64)], the values c_kv
+MLA_SHAPE = (16, 576, 512)
+
+
+def paged_mla_decode_attention_ref(q, pages, block_tables, lengths,
+                                   scale: float, v_dim: int):
+    """The latent decode attention in f32, one sequence at a time.
+
+    q (B, H, W); pages (NP, PS, W); block_tables (B, MP); lengths (B,) ->
+    (B, H, v_dim) in q's dtype: row b's scores scale * q . row over the
+    first ``lengths[b]`` latent rows of its pages, softmax, times the
+    rows' first ``v_dim`` columns.  A row of length 0 gets zeros."""
+    ps = pages.shape[1]
+    b, mp = block_tables.shape
+    out = torch.zeros((b, q.shape[1], v_dim), dtype=torch.float32,
+                      device=q.device)
+    for i in range(b):
+        n = max(0, min(int(lengths[i]), mp * ps))
+        if n == 0:
+            continue
+        rows = pages[block_tables[i, :-(-n // ps)].long()].reshape(
+            -1, pages.shape[2])[:n].float()
+        p = torch.softmax(q[i].float() @ rows.T * scale, dim=-1)
+        out[i] = p @ rows[:, :v_dim]
+    return out.to(q.dtype)

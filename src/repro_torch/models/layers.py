@@ -31,6 +31,7 @@ from ..kernels.decode_attention.ops import \
 from ..kernels.rmsnorm.ops import rmsnorm as _rmsnorm_kernel
 from ..parallel import ctx as pctx
 from ..parallel import op_cost
+from . import trace
 
 # ---------------------------------------------------------------------------
 # init
@@ -96,6 +97,20 @@ class ParamInit:
                 "wv": self.dense(lead, d, cfg.n_kv_heads * hd, bias),
                 "wo": self.dense(lead, cfg.n_heads * hd, d)}
 
+    def mla(self, lead, cfg):
+        """Latent attention (``mla_project``): q (D, H (dn + dr)), the
+        latent's down projection [c_kv | k_pe] (D, r + dr), its norm, the
+        up projection to per-head [k_nope | v] (r, H (dn + dv)) and the
+        output (H dv, D)."""
+        m, d, h = cfg.mla, cfg.d_model, cfg.n_heads
+        r = m.kv_lora_rank
+        return {"wq": self.dense(lead, d, h * m.qk_head_dim),
+                "wkva": self.dense(lead, d, r + m.qk_rope_head_dim),
+                "kv_ln": self.rmsnorm(lead, r),
+                "wkvb": self.dense(lead, r,
+                                   h * (m.qk_nope_head_dim + m.v_head_dim)),
+                "wo": self.dense(lead, h * m.v_head_dim, d)}
+
     def mlp(self, lead, d_model: int, d_ff: int):
         """``layers.mlp_init``."""
         return {"w_gate": self.dense(lead, d_model, d_ff),
@@ -130,20 +145,59 @@ def rmsnorm(p, x, eps: float = 1e-5):
 # ---------------------------------------------------------------------------
 
 
-def rope_frequencies(head_dim: int, theta: float, device=None):
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's attention scale for a context stretched by ``factor``."""
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+def yarn_range(mla, head_dim: int, theta: float) -> tuple[int, int]:
+    """The rotary pairs between which YaRN blends the extrapolated and the
+    interpolated frequencies: the correction dims of ``beta_fast`` and
+    ``beta_slow`` rotations over the original context, clipped."""
+    def dim(rotations):
+        return (head_dim * math.log(mla.original_max_position
+                                    / (rotations * 2 * math.pi))
+                / (2 * math.log(theta)))
+    return (max(math.floor(dim(mla.beta_fast)), 0),
+            min(math.ceil(dim(mla.beta_slow)), head_dim - 1))
+
+
+def rope_frequencies(head_dim: int, theta: float, device=None, mla=None):
+    """The rotation frequencies of the hd/2 pairs; with ``mla`` (an
+    ``MLAConfig``) YaRN's: the extrapolated ``theta^(-2i/hd)`` and the
+    interpolated ones (divided by the factor) blended by a linear ramp
+    between ``yarn_range``'s dims, as DeepSeek-V2's modelling code does."""
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
                         device=device) / head_dim
-    return 1.0 / (theta ** exps)
+    freqs = 1.0 / (theta ** exps)
+    if mla is None:
+        return freqs
+    inter = 1.0 / (mla.rope_factor * theta ** exps)
+    low, high = yarn_range(mla, head_dim, theta)
+    ramp = torch.clamp((torch.arange(head_dim // 2, dtype=torch.float32,
+                                     device=device) - low)
+                       / (high - low if high > low else 0.001), 0, 1)
+    keep = 1.0 - ramp
+    return inter * (1 - keep) + freqs * keep
 
 
-def rope_tables(positions, head_dim: int, theta: float, device=None):
+def rope_tables(positions, head_dim: int, theta: float, device=None,
+                mla=None):
     """cos and sin of the rotation angles at ``positions`` (broadcastable
     to (..., S)): (..., S, 1, hd/2) f32 each.  A step whose layers share
     their positions computes them once (on the card's host each call is
-    about 0.2 ms of launches)."""
-    freqs = rope_frequencies(head_dim, theta, device)          # (hd/2,)
+    about 0.2 ms of launches).  With ``mla`` the frequencies are YaRN's
+    and cos/sin are scaled by mscale(factor, mscale) / mscale(factor,
+    mscale_all_dim), 1 for DeepSeek-V2-Lite."""
+    freqs = rope_frequencies(head_dim, theta, device, mla)     # (hd/2,)
     angles = positions[..., None].float() * freqs              # (..., S, hd/2)
-    return torch.cos(angles)[..., None, :], torch.sin(angles)[..., None, :]
+    cos, sin = torch.cos(angles)[..., None, :], torch.sin(angles)[..., None, :]
+    if mla is not None:
+        ms = (yarn_mscale(mla.rope_factor, mla.mscale)
+              / yarn_mscale(mla.rope_factor, mla.mscale_all_dim))
+        if ms != 1.0:
+            cos, sin = cos * ms, sin * ms
+    return cos, sin
 
 
 def apply_rope(x, positions, theta: float, tables=None):
@@ -170,9 +224,12 @@ def _repeat_kv(k, groups: int):
                         (b, s, h * groups, d))
 
 
-def full_attention(q, k, v, causal: bool = True, q_offset: int = 0):
-    """Reference O(S^2)-memory attention.  q: (B,Sq,H,hd), k/v: (B,Sk,H,hd)."""
-    scale = 1.0 / math.sqrt(q.shape[-1])
+def full_attention(q, k, v, causal: bool = True, q_offset: int = 0,
+                   scale: float | None = None):
+    """Reference O(S^2)-memory attention.  q: (B,Sq,H,hd), k/v: (B,Sk,H,hd)
+    (v may be another width); ``scale`` defaults to 1/sqrt(hd)."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
     if causal:
         sq, sk = q.shape[1], k.shape[1]
@@ -446,6 +503,146 @@ def attention_apply(p, x, cfg, positions=None, kv_cache=None, length=None,
     # norm that reads it)
     out = pctx.shard_hidden(dense(p["wo"], pctx.reshape(out, (b, 1, h * hd))))
     return out, (k_cache, v_cache)
+
+
+# ---------------------------------------------------------------------------
+# multi-head latent attention (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+#
+# Per token, ``mla_project`` makes q = x W_q (H heads of [q_nope | q_pe])
+# and the latent [RMSNorm(c_kv) | RoPE(k_pe)] = x W_kva, normed and
+# rotated: the 576 values a token of a layer caches (DeepSeek-V2-Lite).
+# The prefill decompresses the latent into per-head K = [c W_UK | k_pe]
+# and V = c W_UV (``mla_expand``, the non-absorbed form, through the
+# chunk attention kernel); a decode step keeps the latent and absorbs
+# W_UK into the query and W_UV into the output (``mla_absorb_query``,
+# ``mla_absorb_out``), so its attention reads one latent row a key for all
+# H heads (DESIGN.md §2.14).
+
+
+def mla_scale(cfg) -> float:
+    """The softmax scale: (dn + dr)^-1/2 times mscale(factor,
+    mscale_all_dim) squared."""
+    m = cfg.mla
+    return (m.qk_head_dim ** -0.5
+            * yarn_mscale(m.rope_factor, m.mscale_all_dim) ** 2)
+
+
+def mla_rope_tables(positions, cfg, device=None):
+    """``rope_tables`` of the rotary part at ``positions``: YaRN's."""
+    return rope_tables(positions, cfg.mla.qk_rope_head_dim, cfg.rope_theta,
+                       device, cfg.mla)
+
+
+def mla_rope(x, tables):
+    """x (..., S, heads, dr) rotated as DeepSeek-V2 does: its interleaved
+    pairs (x0, x1), (x2, x3), ... are first permuted to halves
+    (x0, x2, ..., x1, x3, ...), then rotated in the rotate-half form (in
+    f32, as ``apply_rope``)."""
+    cos, sin = tables
+    xf = x.float()
+    even, odd = xf[..., 0::2], xf[..., 1::2]
+    return torch.cat([even * cos - odd * sin, even * sin + odd * cos],
+                     dim=-1).to(x.dtype)
+
+
+def mla_project(p, x, cfg, rope):
+    """x (B, S, D), normed -> (q_nope (B,S,H,dn), q_pe (B,S,H,dr) rotated,
+    latent (B,S,r+dr)): the latent is [RMSNorm_kv(c_kv) | RoPE(k_pe)], one
+    k_pe shared by every head, in x's dtype."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    h, r, dn = cfg.n_heads, m.kv_lora_rank, m.qk_nope_head_dim
+    q = dense(p["wq"], x).view(b, s, h, m.qk_head_dim)
+    kva = dense(p["wkva"], x)
+    c = rmsnorm(p["kv_ln"], kva[..., :r], cfg.norm_eps)
+    # the queries' rotary parts and the shared k_pe, rotated at once
+    pe = mla_rope(torch.cat([q[..., dn:], kva[..., None, r:]], dim=2), rope)
+    return q[..., :dn], pe[:, :, :h], torch.cat([c, pe[:, :, h]], dim=-1)
+
+
+def mla_expand(p, latent, cfg):
+    """latent (B, n, r + dr) -> per-head K (B, n, H, dn + dr) =
+    [c W_UK | k_pe] and V (B, n, H, dv) = c W_UV, each contiguous."""
+    m = cfg.mla
+    b, n, _ = latent.shape
+    r, dn, dr = m.kv_lora_rank, m.qk_nope_head_dim, m.qk_rope_head_dim
+    with trace.span("model.mla_expand"):
+        kv = dense(p["wkvb"], latent[..., :r]).view(b, n, cfg.n_heads, -1)
+        k = torch.cat([kv[..., :dn], latent[..., None, r:].expand(
+            b, n, cfg.n_heads, dr)], dim=-1)
+        return k, kv[..., dn:].contiguous()
+
+
+def mla_attention(p, x, cfg, rope, prefix=None, n_rows: int | None = None):
+    """Causal latent attention of the rows x (B, S, D), normed, after the
+    P-token latent ``prefix`` (B, P, r + dr) (none: P = 0), in the
+    non-absorbed form.  Returns (out (B, S, D), the rows' latent
+    (B, S, r + dr)).
+
+    The prefix's and the first ``n_rows`` rows' latent (all when None; the
+    rest trail as padding) are decompressed into per-head K and V; on the
+    card the chunk attention kernel attends over them at key width
+    dn + dr and value width dv with ``mla_scale`` and gives the padding
+    rows zeros; on the CPU and on a mesh it is ``full_attention``."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    n = s if n_rows is None else n_rows
+    p_len = 0 if prefix is None else prefix.shape[1]
+    q_nope, q_pe, latent = mla_project(p, x, cfg, rope)
+    q = torch.cat([q_nope, q_pe], dim=-1)
+    lat = latent[:, :n] if prefix is None else torch.cat(
+        [prefix.to(latent.dtype), latent[:, :n]], dim=1)
+    k, v = mla_expand(p, lat, cfg)
+    if q.is_cuda and not pctx.on_mesh(q):
+        out = _chunk_attention_kernel(q, k[:, :p_len], v[:, :p_len],
+                                      k[:, p_len:], v[:, p_len:], n,
+                                      scale=mla_scale(cfg))
+    else:
+        out = full_attention(q, k, v, causal=True, q_offset=p_len,
+                             scale=mla_scale(cfg))
+    out = dense(p["wo"], out.reshape(b, s, cfg.n_heads * m.v_head_dim))
+    return out, latent
+
+
+def _mla_weights(p, cfg):
+    """W_UK (H, dn, r) and W_UV (H, r, dv): views of the up projection."""
+    m = cfg.mla
+    w = p["wkvb"]["w"].view(m.kv_lora_rank, cfg.n_heads, -1)
+    return (w[..., :m.qk_nope_head_dim].permute(1, 2, 0),
+            w[..., m.qk_nope_head_dim:].permute(1, 0, 2))
+
+
+def mla_absorb_query(p, q_nope, q_pe, cfg):
+    """One query row per sequence, q_nope (B, H, dn) and q_pe (B, H, dr) ->
+    (B, H, r + dr): [q_nope_h W_UK,h^T | q_pe_h], whose dot product with a
+    latent row [c | k_pe] is the non-absorbed score q_h . k_h."""
+    w_uk, _ = _mla_weights(p, cfg)
+    qa = torch.matmul(q_nope.transpose(0, 1), w_uk).transpose(0, 1)
+    return torch.cat([qa, q_pe], dim=-1)
+
+
+def mla_absorb_out(p, o_lat, cfg):
+    """The latent attention output o_lat (B, H, r) -> (B, 1, D): each head's
+    õ_h W_UV,h, then the output projection."""
+    _, w_uv = _mla_weights(p, cfg)
+    o = torch.matmul(o_lat.transpose(0, 1), w_uv).transpose(0, 1)
+    b = o.shape[0]
+    return dense(p["wo"], o.reshape(b, 1, -1))
+
+
+def mla_decode_plain(q, latent, length, scale: float, v_dim: int):
+    """The absorbed decode attention over a contiguous latent cache: q
+    (B, H, r + dr), latent (B, Smax, r + dr), length (B,) -> (B, H, v_dim)
+    in q's dtype; row b attends its first ``length[b]`` latent rows, whose
+    first ``v_dim`` columns are the values.  f32 scores and softmax."""
+    s = torch.einsum("bhc,bsc->bhs", q.float(), latent.float()) * scale
+    pos = torch.arange(latent.shape[1], device=q.device)
+    s = s.masked_fill(~(pos[None, :] < length[:, None])[:, None, :],
+                      float("-inf"))
+    out = torch.einsum("bhs,bsc->bhc", torch.softmax(s, dim=-1),
+                       latent[..., :v_dim].float())
+    return out.to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

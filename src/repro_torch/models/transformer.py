@@ -1,7 +1,11 @@
 """The model in PyTorch, mirroring ``repro.models.transformer``: one
 init/loss/prefill/decode quartet covering every family the JAX package has
 (dense, vlm, moe, hybrid Mamba2, xLSTM and enc-dec), plus the paged and
-prefix-cached entry points of the attention families.
+prefix-cached entry points of the attention families.  A model with
+latent attention (``cfg.mla``: DeepSeek-V2, which the JAX package does not
+have) runs through the same entry points: its caches hold one latent row a
+token where the others hold K and V (``kv_names``), and its experts run
+dropless (``moe.moe_dropless``) wherever it serves.
 
 Parameters keep the JAX package's pytree: per-layer weights stacked on
 axis 0 (twice for hybrid's (groups, period) Mamba2 blocks), and a Python
@@ -27,40 +31,75 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
-from ..kernels.decode_attention.ops import paged_decode_attention
+from ..kernels.decode_attention.ops import (paged_decode_attention,
+                                            paged_mla_decode_attention)
 from ..parallel import ctx as pctx
+from . import trace
 from . import xlstm as xl
 from .layers import (ParamInit, apply_rope, attention_apply,
-                     decode_attention, dense, embed, mlp_apply, rmsnorm,
-                     rope_tables)
-from .moe import moe_apply, moe_init
+                     decode_attention, dense, embed, mla_absorb_out,
+                     mla_absorb_query, mla_attention, mla_decode_plain,
+                     mla_project, mla_rope_tables, mla_scale, mlp_apply,
+                     rmsnorm, rope_tables)
+from .moe import moe_apply, moe_dropless, moe_init
 from .ssm import mamba2_apply, mamba2_init
 
 
 def _attention_family(cfg: ModelConfig, what: str) -> None:
-    """The JAX entry points' refusal of the recurrent and enc-dec families
-    (``init_paged_cache``, ``chunk_prefill_fn``, ``paged_decode_fn``,
-    ``prefill_from_cache``), in their words."""
-    if cfg.family not in ("dense", "vlm"):
+    """The JAX entry points' refusal of the recurrent, enc-dec and
+    capacity-routed MoE families (``init_paged_cache``,
+    ``chunk_prefill_fn``, ``paged_decode_fn``, ``prefill_from_cache``), in
+    their words; a latent-attention model (its experts dropless) is
+    served."""
+    if cfg.family not in ("dense", "vlm") and cfg.mla is None:
         raise ValueError(f"{what} unsupported for family {cfg.family}")
+
+
+def kv_names(cfg: ModelConfig) -> tuple:
+    """The per-token cache tensors of an attention model, in the order the
+    chunked prefill returns them and the engine stages them: K and V, or
+    latent attention's one latent row."""
+    return ("c",) if cfg.mla is not None else ("k", "v")
+
+
+def cache_widths(cfg: ModelConfig) -> tuple:
+    """A cached token's trailing shape in each of ``kv_names``: (Hkv, hd)
+    for K and V, (r + dr,) for the latent."""
+    if cfg.mla is not None:
+        return ((cfg.mla.latent_dim,),)
+    return ((cfg.n_kv_heads, cfg.resolved_head_dim),) * 2
+
+
+def empty_prefix(cfg: ModelConfig, batch: int, device=None) -> tuple:
+    """A prefix of no tokens for the chunked prefill: one (L, B, 0, ...)
+    bf16 tensor per ``kv_names``."""
+    return tuple(torch.zeros((cfg.n_layers, batch, 0) + w,
+                             dtype=torch.bfloat16, device=device)
+                 for w in cache_widths(cfg))
 
 
 # ===========================================================================
 # Parameter init
 # ===========================================================================
 
+def _attention_init(init: ParamInit, cfg: ModelConfig, lead, bias):
+    if cfg.mla is not None:
+        return init.mla(lead, cfg)
+    return init.attention(lead, cfg, bias)
+
+
 def _dense_layer(init: ParamInit, cfg: ModelConfig, d_ff: int, lead=(),
                  bias: bool | None = None) -> dict:
     return {"ln1": init.rmsnorm(lead, cfg.d_model),
-            "attn": init.attention(lead, cfg, cfg.qkv_bias if bias is None
-                                   else bias),
+            "attn": _attention_init(init, cfg, lead, cfg.qkv_bias
+                                    if bias is None else bias),
             "ln2": init.rmsnorm(lead, cfg.d_model),
             "mlp": init.mlp(lead, cfg.d_model, d_ff)}
 
 
 def _moe_layer(init: ParamInit, cfg: ModelConfig, lead=()) -> dict:
     return {"ln1": init.rmsnorm(lead, cfg.d_model),
-            "attn": init.attention(lead, cfg, cfg.qkv_bias),
+            "attn": _attention_init(init, cfg, lead, cfg.qkv_bias),
             "ln2": init.rmsnorm(lead, cfg.d_model),
             "moe": moe_init(init, cfg.d_model, cfg.moe, lead)}
 
@@ -169,11 +208,16 @@ def _attention_layers(cfg: ModelConfig, params: dict) -> list:
     return [(lp, i) for i, lp in enumerate(_layers(params))]
 
 
-def _ffn(cfg, lp, h):
-    """The block's second half: the dense MLP or the MoE layer."""
-    x = rmsnorm(lp["ln2"], h)
+def _ffn(cfg, lp, h, n_rows: int | None = None):
+    """The block's second half: the dense MLP or the MoE layer.  A
+    latent-attention model's experts run dropless over the first
+    ``n_rows`` rows (all when None; the padding rows after them get no
+    expert output); the others keep the JAX package's capacity routing."""
+    x = rmsnorm(lp["ln2"], h, cfg.norm_eps)
     if "mlp" in lp:
         return h + mlp_apply(lp["mlp"], x)
+    if cfg.mla is not None:
+        return h + moe_dropless(lp["moe"], x, cfg.moe, n_rows)
     out, _ = moe_apply(lp["moe"], x, cfg.moe)
     return h + out
 
@@ -186,7 +230,7 @@ def _unembed_matrix(cfg, params):
 
 def _logits(cfg, params, h_last):
     """Final norm + vocab projection of (B, D) hidden rows -> f32 logits."""
-    h_last = rmsnorm(params["final_ln"], h_last)
+    h_last = rmsnorm(params["final_ln"], h_last, cfg.norm_eps)
     return pctx.matmul(h_last, _unembed_matrix(cfg, params)).float()
 
 
@@ -217,19 +261,29 @@ def _maybe_remat(fn, cfg):
     return remat
 
 
+def _self_attention(cfg, p, xn):
+    """Causal self-attention of a whole sequence (no cache)."""
+    if cfg.mla is not None:
+        positions = torch.arange(xn.shape[1], device=xn.device)[None, :]
+        return mla_attention(p, xn, cfg,
+                             mla_rope_tables(positions, cfg, xn.device))[0]
+    return attention_apply(p, xn, cfg)[0]
+
+
 def _dense_block(cfg):
     def block(x, lp):
-        a, _ = attention_apply(lp["attn"], rmsnorm(lp["ln1"], x), cfg)
-        x = x + a
-        return x + mlp_apply(lp["mlp"], rmsnorm(lp["ln2"], x))
+        x = x + _self_attention(cfg, lp["attn"],
+                                rmsnorm(lp["ln1"], x, cfg.norm_eps))
+        return x + mlp_apply(lp["mlp"], rmsnorm(lp["ln2"], x, cfg.norm_eps))
     return block
 
 
 def _moe_block(cfg):
     def block(x, aux, lp):
-        a, _ = attention_apply(lp["attn"], rmsnorm(lp["ln1"], x), cfg)
-        x = x + a
-        h, aux_l = moe_apply(lp["moe"], rmsnorm(lp["ln2"], x), cfg.moe)
+        x = x + _self_attention(cfg, lp["attn"],
+                                rmsnorm(lp["ln1"], x, cfg.norm_eps))
+        h, aux_l = moe_apply(lp["moe"], rmsnorm(lp["ln2"], x, cfg.norm_eps),
+                             cfg.moe)
         return x + h, aux + aux_l
     return block
 
@@ -260,7 +314,8 @@ def _backbone(cfg: ModelConfig, params, x):
         shared = params["shared_attn"]
 
         def mamba_block(h, lp):
-            y, _, _ = mamba2_apply(lp["mamba"], rmsnorm(lp["ln"], h), cfg.ssm)
+            y, _, _ = mamba2_apply(lp["mamba"],
+                                   rmsnorm(lp["ln"], h, cfg.norm_eps), cfg.ssm)
             return h + y
         mamba_block = _maybe_remat(mamba_block, cfg)
         attn_block = _maybe_remat(_dense_block(cfg), cfg)
@@ -270,10 +325,12 @@ def _backbone(cfg: ModelConfig, params, x):
             x = attn_block(x, shared)
     elif fam == "ssm":
         def pair(h, lp):
-            y, _ = xl.mlstm_apply(lp["mlstm"], rmsnorm(lp["m_ln"], h),
+            y, _ = xl.mlstm_apply(lp["mlstm"],
+                                  rmsnorm(lp["m_ln"], h, cfg.norm_eps),
                                   cfg.n_heads, chunk=cfg.xlstm.chunk)
             h = h + y
-            y, _ = xl.slstm_apply(lp["slstm"], rmsnorm(lp["s_ln"], h))
+            y, _ = xl.slstm_apply(lp["slstm"],
+                                  rmsnorm(lp["s_ln"], h, cfg.norm_eps))
             return h + y
         pair = _maybe_remat(pair, cfg)
         for lp in _layers(params):
@@ -287,12 +344,14 @@ def _decode_stack(cfg, params, x, memory):
     """The enc-dec decoder over the whole sequence: causal self-attention,
     cross-attention over ``memory``, MLP."""
     def dec_block(h, lp, memory):
-        a, _ = attention_apply(lp["self_attn"], rmsnorm(lp["ln1"], h), cfg)
+        a, _ = attention_apply(lp["self_attn"],
+                               rmsnorm(lp["ln1"], h, cfg.norm_eps), cfg)
         h = h + a
-        a, _ = attention_apply(lp["cross_attn"], rmsnorm(lp["ln_x"], h), cfg,
+        a, _ = attention_apply(lp["cross_attn"],
+                               rmsnorm(lp["ln_x"], h, cfg.norm_eps), cfg,
                                memory=memory)
         h = h + a
-        return h + mlp_apply(lp["mlp"], rmsnorm(lp["ln2"], h))
+        return h + mlp_apply(lp["mlp"], rmsnorm(lp["ln2"], h, cfg.norm_eps))
     blk = _maybe_remat(dec_block, cfg)
     for lp in _layers(params):
         x = blk(x, lp, memory)
@@ -346,7 +405,7 @@ def loss_fn(cfg: ModelConfig):
             hidden = _decode_stack(cfg, params, x, memory)
         else:
             hidden, aux = _backbone(cfg, params, _inputs(cfg, params, batch))
-        hidden = rmsnorm(params["final_ln"], hidden)
+        hidden = rmsnorm(params["final_ln"], hidden, cfg.norm_eps)
         loss = chunked_loss(cfg, params, hidden, batch["labels"])
         if cfg.family == "moe":
             loss = loss + 0.01 * aux
@@ -377,6 +436,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None,
         return zeros((n, batch, max_len, cfg.n_kv_heads, hd))
 
     length = zeros((batch,), torch.int32)
+    if cfg.mla is not None:
+        return {"c": zeros((cfg.n_layers, batch, max_len,
+                            cfg.mla.latent_dim)), "len": length}
     if fam in ("dense", "vlm", "moe"):
         return {"k": kv(cfg.n_layers), "v": kv(cfg.n_layers), "len": length}
     if fam == "hybrid":
@@ -426,15 +488,33 @@ def decode_fn(cfg: ModelConfig):
     hd = cfg.resolved_head_dim
 
     def self_attn(p, ln, h, kc, vc, length):
-        a, _ = attention_apply(p, rmsnorm(ln, h), cfg,
+        a, _ = attention_apply(p, rmsnorm(ln, h, cfg.norm_eps), cfg,
                                positions=length[:, None], kv_cache=(kc, vc),
                                length=length)
         return h + a
 
+    def latent_attn(p, ln, h, cc, length, rope):
+        """The absorbed latent attention over the contiguous cache, in
+        plain torch: the new token's latent row written at ``length``."""
+        q_nope, q_pe, lat = mla_project(p, rmsnorm(ln, h, cfg.norm_eps), cfg,
+                                        rope)
+        rows = torch.arange(h.shape[0], device=h.device)
+        pctx.write_rows(cc, rows, length.long(), lat[:, 0].to(cc.dtype))
+        q = mla_absorb_query(p, q_nope[:, 0], q_pe[:, 0], cfg)
+        o = mla_decode_plain(q, cc, length + 1, mla_scale(cfg),
+                             cfg.mla.kv_lora_rank)
+        return h + mla_absorb_out(p, o, cfg)
+
     def f(params, cache, tokens):
         h = embed(params["embed"], tokens[:, None])
         length = cache["len"]
-        if fam in ("dense", "vlm", "moe"):
+        if cfg.mla is not None:
+            rope = mla_rope_tables(length[:, None], cfg, h.device)
+            for lp, i in _attention_layers(cfg, params):
+                h = latent_attn(lp["attn"], lp["ln1"], h, cache["c"][i],
+                                length, rope)
+                h = _ffn(cfg, lp, h)
+        elif fam in ("dense", "vlm", "moe"):
             for lp, i in _attention_layers(cfg, params):
                 h = self_attn(lp["attn"], lp["ln1"], h, cache["k"][i],
                               cache["v"][i], length)
@@ -444,7 +524,8 @@ def decode_fn(cfg: ModelConfig):
             for g, glp in enumerate(_layers(params)):
                 for j, lp in enumerate(_unstack(glp)):
                     y, st, cst = mamba2_apply(
-                        lp["mamba"], rmsnorm(lp["ln"], h), cfg.ssm,
+                        lp["mamba"], rmsnorm(lp["ln"], h, cfg.norm_eps),
+                        cfg.ssm,
                         state=cache["ssm"][g, j], conv_state=cache["conv"][g, j])
                     h = h + y
                     cache["ssm"][g, j] = st
@@ -455,11 +536,12 @@ def decode_fn(cfg: ModelConfig):
         elif fam == "ssm":
             for i, lp in enumerate(_layers(params)):
                 y, mst = xl.mlstm_apply(
-                    lp["mlstm"], rmsnorm(lp["m_ln"], h), cfg.n_heads,
+                    lp["mlstm"], rmsnorm(lp["m_ln"], h, cfg.norm_eps),
+                    cfg.n_heads,
                     state=(cache["C"][i], cache["n"][i], cache["m"][i]))
                 h = h + y
                 y, sst = xl.slstm_apply(
-                    lp["slstm"], rmsnorm(lp["s_ln"], h),
+                    lp["slstm"], rmsnorm(lp["s_ln"], h, cfg.norm_eps),
                     state=(cache["sc"][i], cache["sn"][i], cache["sm"][i],
                            cache["sh"][i]))
                 h = h + y
@@ -472,14 +554,16 @@ def decode_fn(cfg: ModelConfig):
                               cache["v"][i], length)
                 # cross-attention reads the precomputed memory KV directly
                 b = h.shape[0]
-                xq = dense(lp["cross_attn"]["wq"], rmsnorm(lp["ln_x"], h))
+                xq = dense(lp["cross_attn"]["wq"],
+                           rmsnorm(lp["ln_x"], h, cfg.norm_eps))
                 a2 = decode_attention(pctx.reshape(xq, (b, cfg.n_heads, hd)),
                                       cache["ck"][i], cache["cv"][i],
                                       cache["enc_len"])
                 h = h + pctx.shard_hidden(dense(
                     lp["cross_attn"]["wo"],
                     pctx.reshape(a2, (b, 1, cfg.n_heads * hd))))
-                h = h + mlp_apply(lp["mlp"], rmsnorm(lp["ln2"], h))
+                h = h + mlp_apply(lp["mlp"],
+                                  rmsnorm(lp["ln2"], h, cfg.norm_eps))
         cache = dict(cache, len=length + 1)
         return _logits(cfg, params, h[:, 0]), cache
     return f
@@ -488,10 +572,10 @@ def decode_fn(cfg: ModelConfig):
 def _encode(cfg, params, enc_embeds):
     """The encoder stack: each block attends over its own normed input."""
     def enc_block(h, lp):
-        xn = rmsnorm(lp["ln1"], h)
+        xn = rmsnorm(lp["ln1"], h, cfg.norm_eps)
         a, _ = attention_apply(lp["attn"], xn, cfg, memory=xn)
         h = h + a
-        return h + mlp_apply(lp["mlp"], rmsnorm(lp["ln2"], h))
+        return h + mlp_apply(lp["mlp"], rmsnorm(lp["ln2"], h, cfg.norm_eps))
     blk = _maybe_remat(enc_block, cfg)
     h = enc_embeds
     for lp in _layers(params, "encoder"):
@@ -514,7 +598,8 @@ def prefill_fn(cfg: ModelConfig):
         raise ValueError(fam)
 
     def attn_block(p, ln, h):
-        a, (k, v) = attention_apply(p, rmsnorm(ln, h), cfg, kv_out=True)
+        a, (k, v) = attention_apply(p, rmsnorm(ln, h, cfg.norm_eps), cfg,
+                                    kv_out=True)
         return h + a, k, v
 
     def f(params, batch, max_len: int):
@@ -526,6 +611,13 @@ def prefill_fn(cfg: ModelConfig):
         b, s = h.shape[0], h.shape[1]
         cache = pctx.place_cache(init_cache(cfg, b, max_len, h.device,
                                             h.dtype), b)
+        if cfg.mla is not None:
+            logits, lat = _prefix_prefill(cfg, params, h,
+                                          empty_prefix(cfg, b, h.device),
+                                          s - 1, None)
+            cache["c"][:, :, :s] = lat
+            cache["len"].fill_(s)
+            return logits, cache
         if fam in ("dense", "vlm", "moe"):
             for lp, i in _attention_layers(cfg, params):
                 h, k, v = attn_block(lp["attn"], lp["ln1"], h)
@@ -537,7 +629,8 @@ def prefill_fn(cfg: ModelConfig):
             for g, glp in enumerate(_layers(params)):
                 for j, lp in enumerate(_unstack(glp)):
                     y, st, cst = mamba2_apply(lp["mamba"],
-                                              rmsnorm(lp["ln"], h), cfg.ssm)
+                                              rmsnorm(lp["ln"], h,
+                                                      cfg.norm_eps), cfg.ssm)
                     h = h + y
                     cache["ssm"][g, j], cache["conv"][g, j] = st, cst
                 h, k, v = attn_block(shared["attn"], shared["ln1"], h)
@@ -546,10 +639,12 @@ def prefill_fn(cfg: ModelConfig):
                 h = _ffn(cfg, shared, h)
         elif fam == "ssm":
             for i, lp in enumerate(_layers(params)):
-                y, mst = xl.mlstm_apply(lp["mlstm"], rmsnorm(lp["m_ln"], h),
+                y, mst = xl.mlstm_apply(lp["mlstm"],
+                                        rmsnorm(lp["m_ln"], h, cfg.norm_eps),
                                         cfg.n_heads, chunk=cfg.xlstm.chunk)
                 h = h + y
-                y, sst = xl.slstm_apply(lp["slstm"], rmsnorm(lp["s_ln"], h))
+                y, sst = xl.slstm_apply(lp["slstm"],
+                                        rmsnorm(lp["s_ln"], h, cfg.norm_eps))
                 h = h + y
                 for name, t in zip(("C", "n", "m", "sc", "sn", "sm", "sh"),
                                    mst + sst):
@@ -561,12 +656,14 @@ def prefill_fn(cfg: ModelConfig):
                 pctx.write_prefix(cache["k"][i], k)
                 pctx.write_prefix(cache["v"][i], v)
                 a, (ck, cv) = attention_apply(
-                    lp["cross_attn"], rmsnorm(lp["ln_x"], h), cfg,
+                    lp["cross_attn"], rmsnorm(lp["ln_x"], h, cfg.norm_eps),
+                    cfg,
                     memory=memory, kv_out=True)
                 h = h + a
                 pctx.write_prefix(cache["ck"][i], ck)
                 pctx.write_prefix(cache["cv"][i], cv)
-                h = h + mlp_apply(lp["mlp"], rmsnorm(lp["ln2"], h))
+                h = h + mlp_apply(lp["mlp"],
+                                  rmsnorm(lp["ln2"], h, cfg.norm_eps))
             cache["enc_len"].fill_(sm)
         cache["len"].fill_(s)
         return _logits(cfg, params, h[:, -1]), cache
@@ -584,37 +681,64 @@ def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
     Sequences own non-contiguous pages through per-sequence block tables
     (kept host-side by the engine); ``chunk_prefill_fn`` output is written
     into pages and ``paged_decode_fn`` appends + attends through the
-    tables.  Attention families only (dense/vlm).
+    tables.  Attention families only (dense/vlm, and latent attention).
+
+    ``kp`` and ``vp`` are (L, NP, PS, Hkv, hd) K and V pools.  With latent
+    attention ``kp`` is the one (L, NP, PS, r + dr) pool of latent rows
+    [c_kv | k_pe], the keys of its absorbed decode, and ``vp`` a view of
+    its first r columns, the values (DESIGN.md §2.14): written once
+    through ``kp``.
     """
     _attention_family(cfg, "paged cache")
     device = resolve_device(device)
+    if cfg.mla is not None:
+        kp = torch.zeros((cfg.n_layers, n_pages, page_size,
+                          cfg.mla.latent_dim), dtype=torch.bfloat16,
+                         device=device)
+        return {"kp": kp, "vp": kp[..., :cfg.mla.kv_lora_rank]}
     shape = (cfg.n_layers, n_pages, page_size, cfg.n_kv_heads,
              cfg.resolved_head_dim)
     return {"kp": torch.zeros(shape, dtype=torch.bfloat16, device=device),
             "vp": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
 
 
-def _prefix_prefill(cfg, params, h, prefix_k, prefix_v, last: int,
+def _prefix_prefill(cfg, params, h, prefix, last: int,
                     kv_len: int | None):
-    """Shared body of ``chunk_prefill_fn`` and ``prefill_from_cache``:
-    (logits at position ``last``, the new rows' K, V stacked over layers).
+    """Shared body of ``chunk_prefill_fn``, ``prefill_from_cache`` and
+    latent attention's ``prefill_fn``: (logits at position ``last``, the
+    new rows' cache tensors stacked over layers, one per ``kv_names``).
+    ``prefix`` holds the earlier tokens' cache tensors (L, B, P, ...).
     Rows past ``last`` trail as padding: on the card the attention
-    computes none of them.  The positions and their RoPE tables are made
-    once for every layer."""
-    p_len, s = prefix_k.shape[2], h.shape[1]
+    computes none of them, nor (latent attention) do the experts.  The
+    positions and their RoPE tables are made once for every layer."""
+    p_len, s = prefix[0].shape[2], h.shape[1]
     n_rows = last % s + 1
     positions = torch.arange(s, device=h.device)[None, :] + p_len
+    if cfg.mla is not None:
+        rope = mla_rope_tables(positions, cfg, h.device)
+        # each layer decompresses the prefix's and the real rows' latent
+        trace.count("mla_expand_tokens", h.shape[0] * (p_len + n_rows))
+        lats = []
+        for lp, i in _attention_layers(cfg, params):
+            a, lat = mla_attention(lp["attn"],
+                                   rmsnorm(lp["ln1"], h, cfg.norm_eps), cfg,
+                                   rope, prefix[0][i], n_rows)
+            h = _ffn(cfg, lp, h + a, n_rows)
+            lats.append(lat)
+        return _logits(cfg, params, h[:, last]), torch.stack(lats)
+    prefix_k, prefix_v = prefix
     rope = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta,
                        h.device)
     ks, vs = [], []
     for i, lp in enumerate(_layers(params)):
-        a, (k, v) = attention_apply(lp["attn"], rmsnorm(lp["ln1"], h), cfg,
+        a, (k, v) = attention_apply(lp["attn"],
+                                    rmsnorm(lp["ln1"], h, cfg.norm_eps), cfg,
                                     positions=positions, kv_out=True,
                                     prefix_kv=(prefix_k[i], prefix_v[i]),
                                     q_offset=p_len, kv_len=kv_len,
                                     n_rows=n_rows, rope=rope)
         h = h + a
-        h = h + mlp_apply(lp["mlp"], rmsnorm(lp["ln2"], h))
+        h = h + mlp_apply(lp["mlp"], rmsnorm(lp["ln2"], h, cfg.norm_eps))
         ks.append(k)
         vs.append(v)
     return _logits(cfg, params, h[:, last]), torch.stack(ks), torch.stack(vs)
@@ -622,31 +746,39 @@ def _prefix_prefill(cfg, params, h, prefix_k, prefix_v, last: int,
 
 def chunk_prefill_fn(cfg: ModelConfig):
     """Returns f(params, tokens, prefix_k, prefix_v, last=-1, kv_len=None)
-    -> (logits, k_new, v_new).
+    -> (logits, k_new, v_new); with latent attention f(params, tokens,
+    prefix_c, last=-1, kv_len=None) -> (logits, c_new).
 
     One chunk of a chunked prefill: ``tokens`` (B, C) is the next C prompt
     tokens, ``prefix_k``/``prefix_v`` (L, B, P, Hkv, hd) the KV of the P
-    tokens already prefilled.  Returns the logits at chunk position
-    ``last`` plus the KV of only the new chunk (L, B, C, Hkv, hd).
+    tokens already prefilled (``prefix_c`` (L, B, P, r + dr) their latent
+    rows).  Returns the logits at chunk position ``last`` plus the KV (the
+    latent) of only the new chunk (L, B, C, ...).
 
     ``last`` and ``kv_len`` let a caller pad a chunk to a fixed shape:
     trailing pad tokens sit after every real one, so the causal mask hides
     them from the real tokens, and ``last`` picks the last real position.
     On the card the attention reads no key past ``last`` and gives the
     rows after it zeros (``layers.attention_apply``), so their K/V differ
-    from the CPU's from the second layer on; the real rows' do not.
+    from the CPU's from the second layer on; the real rows' do not.  A
+    latent-attention model's experts compute no padding row (they get no
+    expert output), on the card and on the CPU, and ``kv_len`` has no use
+    there: its attention reads the prefix and the real rows only.
     """
     _attention_family(cfg, "chunked prefill")
 
-    def f(params, tokens, prefix_k, prefix_v, last: int = -1,
-          kv_len: int | None = None):
+    def f(params, tokens, *prefix, last: int = -1, kv_len: int | None = None):
+        if len(prefix) != len(kv_names(cfg)):
+            raise TypeError(f"a chunk takes the prefix's {kv_names(cfg)}, "
+                            f"then last and kv_len by name")
         return _prefix_prefill(cfg, params, embed(params["embed"], tokens),
-                               prefix_k, prefix_v, last, kv_len)
+                               prefix, last, kv_len)
     return f
 
 
 def paged_decode_fn(cfg: ModelConfig):
-    """Returns f(params, kp, vp, tables, lens, tokens) -> (logits, kp, vp).
+    """Returns f(params, kp, vp, tables, lens, tokens, n_rows=None)
+    -> (logits, kp, vp).
 
     Batched single-step decode over the paged KV pool: ``tokens`` (B,) are
     the latest tokens of B independent sequences, ``tables`` (B, MP) int32
@@ -654,6 +786,11 @@ def paged_decode_fn(cfg: ModelConfig):
     (B,) int32 their context lengths.  Each step writes the new KV into
     page ``tables[b, len // PS]`` slot ``len % PS`` *before* attending over
     ``len + 1`` positions through the block tables, in place.
+
+    With latent attention ``kp`` is the latent pool (``init_paged_cache``):
+    each step writes the new latent row and attends in the absorbed form
+    through the paged kernel's latent instance; ``n_rows`` (the real
+    rows, first; all when None) bounds what its experts compute.
     """
     _attention_family(cfg, "paged decode")
     if cfg.sliding_window:
@@ -661,18 +798,34 @@ def paged_decode_fn(cfg: ModelConfig):
     hd = cfg.resolved_head_dim
     h_, hkv = cfg.n_heads, cfg.n_kv_heads
 
+    def where(tables, lens, ps):
+        rows = torch.arange(tables.shape[0], device=tables.device)
+        page = tables[rows, (lens // ps).long()].long()      # (B,)
+        return page, (lens % ps).long(), (lens + 1).to(torch.int32)
+
+    def f_mla(params, kp, vp, tables, lens, tokens, n_rows=None):
+        h = embed(params["embed"], tokens[:, None])          # (B, 1, D)
+        page, slot, lens1 = where(tables, lens, kp.shape[2])
+        rope = mla_rope_tables(lens[:, None], cfg, h.device)
+        sigma, r = mla_scale(cfg), cfg.mla.kv_lora_rank
+        for lp, i in _attention_layers(cfg, params):
+            at = lp["attn"]
+            q_nope, q_pe, lat = mla_project(
+                at, rmsnorm(lp["ln1"], h, cfg.norm_eps), cfg, rope)
+            kp[i][page, slot] = lat[:, 0].to(kp.dtype)
+            q = mla_absorb_query(at, q_nope[:, 0], q_pe[:, 0], cfg)
+            o = paged_mla_decode_attention(q, kp[i], tables, lens1, sigma, r)
+            h = _ffn(cfg, lp, h + mla_absorb_out(at, o, cfg), n_rows)
+        return _logits(cfg, params, h[:, 0]), kp, vp
+
     def f(params, kp, vp, tables, lens, tokens):
         h = embed(params["embed"], tokens[:, None])          # (B, 1, D)
         b = h.shape[0]
-        ps = kp.shape[2]
         positions = lens[:, None]
-        rows = torch.arange(b, device=h.device)
-        page = tables[rows, (lens // ps).long()].long()      # (B,)
-        slot = (lens % ps).long()
-        lens1 = (lens + 1).to(torch.int32)
+        page, slot, lens1 = where(tables, lens, kp.shape[2])
         for i, lp in enumerate(_layers(params)):
             at = lp["attn"]
-            xn = rmsnorm(lp["ln1"], h)
+            xn = rmsnorm(lp["ln1"], h, cfg.norm_eps)
             q = apply_rope(dense(at["wq"], xn).reshape(b, 1, h_, hd),
                            positions, cfg.rope_theta)
             k_new = apply_rope(dense(at["wk"], xn).reshape(b, 1, hkv, hd),
@@ -684,33 +837,36 @@ def paged_decode_fn(cfg: ModelConfig):
             a = paged_decode_attention(q[:, 0].contiguous(), kc, vc, tables,
                                        lens1)
             h = h + dense(at["wo"], a.reshape(b, 1, h_ * hd))
-            h = h + mlp_apply(lp["mlp"], rmsnorm(lp["ln2"], h))
+            h = h + mlp_apply(lp["mlp"], rmsnorm(lp["ln2"], h, cfg.norm_eps))
         return _logits(cfg, params, h[:, 0]), kp, vp
-    return f
+    return f_mla if cfg.mla is not None else f
 
 
 def prefill_from_cache(cfg: ModelConfig):
-    """Returns f(params, batch, prefix_k, prefix_v, max_len) -> (logits, cache).
+    """Returns f(params, batch, prefix_k, prefix_v, max_len) -> (logits, cache)
+    (with latent attention f(params, batch, prefix_c, max_len)).
 
     Prefill that attaches to a cached prompt prefix: ``batch["tokens"]``
     (or ``batch["embeds"]`` for vlm) holds only the uncached suffix (B, S);
     ``prefix_k``/``prefix_v`` are (L, B, P, Hkv, hd) KV for the first P
-    prompt tokens (RoPE already applied).  The returned cache covers the
-    full P+S context so ``decode_fn`` continues identically to a cold
-    prefill.  Sequence-local attention families only (dense/vlm).
+    prompt tokens (RoPE already applied; ``prefix_c`` their latent rows).
+    The returned cache covers the full P+S context so ``decode_fn``
+    continues identically to a cold prefill.  Sequence-local attention
+    families only (dense/vlm, and latent attention).
     """
     _attention_family(cfg, "prefix-cached prefill")
+    names = kv_names(cfg)
 
-    def f(params, batch, prefix_k, prefix_v, max_len: int):
+    def f(params, batch, *rest):
+        *prefix, max_len = rest
         h = _inputs(cfg, params, batch)
         b, s = h.shape[0], h.shape[1]
-        p_len = prefix_k.shape[2]
-        logits, ks, vs = _prefix_prefill(cfg, params, h, prefix_k, prefix_v,
-                                         -1, None)
+        p_len = prefix[0].shape[2]
+        logits, *new = _prefix_prefill(cfg, params, h, prefix, -1, None)
         cache = init_cache(cfg, b, max_len, h.device, h.dtype)
-        cache["k"][:, :, :p_len], cache["v"][:, :, :p_len] = prefix_k, prefix_v
-        cache["k"][:, :, p_len:p_len + s] = ks
-        cache["v"][:, :, p_len:p_len + s] = vs
+        for name, old, part in zip(names, prefix, new):
+            cache[name][:, :, :p_len] = old
+            cache[name][:, :, p_len:p_len + s] = part
         cache["len"].fill_(p_len + s)
         return logits, cache
     return f

@@ -49,6 +49,7 @@ from ..core.pruning import PruningConfig
 from ..core.tasks import Machine, Task
 from ..device import resolve_device
 from ..kernels.chunk_attention.ref import attended_cells
+from ..models import trace as model_trace
 from ..models import transformer as T
 from ..obs.profiling import profiled
 from .autoscale import ElasticityConfig, PoolScaler
@@ -222,11 +223,13 @@ class ProcessingUnit:
         if model_cfg.family == "encdec":
             raise ValueError("an engine request carries tokens only, and "
                              "family encdec needs enc_embeds")
-        #: the attention families prefill at one fixed shape through
+        #: the attention families (latent attention too, whose experts
+        #: compute no pad row) prefill at one fixed shape through
         #: ``chunk_prefill_fn``; every other family prefills the prompt at
         #: its own length with ``prefill_fn`` (as the JAX unit does): pad
         #: tokens would enter a recurrent state or the MoE capacity
-        self._fixed_shape = model_cfg.family in ("dense", "vlm")
+        self._fixed_shape = (model_cfg.family in ("dense", "vlm")
+                             or model_cfg.mla is not None)
         if shared_fns is not None:
             # warm start: reuse the engine's step functions (the paper's
             # warm container)
@@ -259,9 +262,9 @@ class ProcessingUnit:
                             temperature=0.7 if 0 < i == b - 1 else 0.0)
                     for i in range(b)]
             _, cache = self.execute(None, reqs, rng, buckets=(b,))
-            if "k" in cache:
-                cache["k"][:, 0, :plen].cpu()
-                cache["v"][:, 0, :plen].cpu()
+            for name in T.kv_names(self.cfg):
+                if name in cache:
+                    cache[name][:, 0, :plen].cpu()
         self.warm = True
         return time.perf_counter() - t0
 
@@ -272,7 +275,8 @@ class ProcessingUnit:
         A unit of a recurrent, MoE or hybrid model prefills the prompt at
         its own length (``prefill_fn``).  For the attention families
         ``prefix=(pk, pv)`` (L, P, Hkv, hd) holds the KV of the first P
-        prompt tokens: only the rest is prefilled, attached to it.  Every
+        prompt tokens (``(pc,)`` (L, P, r + dr) their latent rows with
+        latent attention): only the rest is prefilled, attached to it.  Every
         prefill has one shape per unit, whatever P and the prompt length:
         the new tokens are padded to ``max_len`` rows (pad rows trail every
         real one, so the causal mask hides them from the real rows) and the
@@ -290,11 +294,8 @@ class ProcessingUnit:
                 self.params, {"tokens": toks.to(dev)[None].expand(bucket, -1)},
                 cap)
         if prefix is None:
-            pk = pv = torch.zeros((mc.n_layers, 0, mc.n_kv_heads,
-                                   mc.resolved_head_dim), dtype=torch.bfloat16)
-        else:
-            pk, pv = prefix
-        plen = pk.shape[1]
+            prefix = tuple(t[:, 0] for t in T.empty_prefix(mc, 1))
+        plen = prefix[0].shape[1]
         n = len(prompt) - plen
         if n < 1 or plen + n > cap:
             raise ValueError(f"a prompt of {len(prompt)} tokens after a "
@@ -302,17 +303,16 @@ class ProcessingUnit:
                              f"{cap}")
         toks = torch.zeros((bucket, cap), dtype=torch.long)
         toks[:, :n] = torch.as_tensor(np.asarray(prompt[plen:], np.int64))
-        pkb = pk.to(dev)[:, None].expand(
-            (pk.shape[0], bucket) + tuple(pk.shape[1:]))
-        pvb = pv.to(dev)[:, None].expand(
-            (pv.shape[0], bucket) + tuple(pv.shape[1:]))
-        logits, kn, vn = self._prefill_step(self.params, toks.to(dev), pkb,
-                                            pvb, last=n - 1, kv_len=2 * cap)
-        pad = (0, 0, 0, 0, 0, cap - plen - n)
-        cache = {"k": F.pad(torch.cat([pkb, kn[:, :, :n]], dim=2), pad),
-                 "v": F.pad(torch.cat([pvb, vn[:, :, :n]], dim=2), pad),
-                 "len": torch.full((bucket,), plen + n, dtype=torch.int32,
+        pre = [t.to(dev)[:, None].expand((t.shape[0], bucket)
+                                         + tuple(t.shape[1:]))
+               for t in prefix]
+        logits, *new = self._prefill_step(self.params, toks.to(dev), *pre,
+                                          last=n - 1, kv_len=2 * cap)
+        cache = {"len": torch.full((bucket,), plen + n, dtype=torch.int32,
                                    device=dev)}
+        for name, old, part in zip(T.kv_names(mc), pre, new):
+            pad = (0, 0) * (old.dim() - 3) + (0, cap - plen - n)
+            cache[name] = F.pad(torch.cat([old, part[:, :, :n]], dim=2), pad)
         return logits, cache
 
     def execute(self, task: Task, requests: list[Request],
@@ -323,8 +323,9 @@ class ProcessingUnit:
         Batch sizes are padded to fixed buckets, as in the JAX engine, and
         the prefill to one shape per unit (``_prefill``).
 
-        ``prefix=(pk, pv)`` — host KV tensors (L, P, Hkv, hd) for the first P
-        prompt tokens from the paged prefix cache: only ``prompt[P:]`` is
+        ``prefix=(pk, pv)`` — host KV tensors (L, P, Hkv, hd) (latent
+        attention: ``(pc,)``) for the first P prompt tokens from the paged
+        prefix cache: only ``prompt[P:]`` is
         prefilled, attached to the cached blocks (DESIGN.md §2.4).  The
         returned cache dict lets the engine admit this prompt's KV back into
         the cache."""
@@ -425,6 +426,13 @@ class _UnitRunner:
         self.mp = -(-engine.cfg.max_len // self.ps)     # pages per sequence
         n_pages = cfgb.max_batch * self.mp + 1          # page 0: pad scratch
         self.pages = T.init_paged_cache(mc, n_pages, self.ps, self.dev)
+        #: the pools a sequence's prefill is written to, one per cache
+        #: tensor of ``T.kv_names`` (latent attention's values are a view
+        #: of its one pool)
+        self._pools = ("kp", "vp")[:len(T.kv_names(mc))]
+        #: a latent-attention decode step is told its real rows (its
+        #: experts compute those only)
+        self._real_rows = mc.mla is not None
         self.free = list(range(1, n_pages))
         self._chunk = T.chunk_prefill_fn(mc)
         self._pdec = T.paged_decode_fn(mc)
@@ -437,10 +445,7 @@ class _UnitRunner:
         self.setup_wall = self._calibrate()
 
     def _empty_kv(self):
-        mc = self.eng.model_cfg
-        return torch.zeros((mc.n_layers, 1, 0, mc.n_kv_heads,
-                            mc.resolved_head_dim), dtype=torch.bfloat16,
-                           device=self.dev)
+        return T.empty_prefix(self.eng.model_cfg, 1, self.dev)
 
     def _calibrate(self) -> float:
         """Run both step functions at their fixed shapes and measure the
@@ -450,10 +455,10 @@ class _UnitRunner:
         eng = self.eng
         c = max(1, min(self.c_pad, eng.cfg.max_len - 1))
         toks = torch.zeros((1, self.c_pad), dtype=torch.long, device=self.dev)
-        pk = self._empty_kv()
+        pre = self._empty_kv()
         for rep in range(2):
             t1 = time.perf_counter()
-            profiled("chunk_prefill", self._chunk, eng.params, toks, pk, pk,
+            profiled("chunk_prefill", self._chunk, eng.params, toks, *pre,
                      last=c - 1, kv_len=self.kv_len)
             _sync(self.dev)
         self.rp = max(time.perf_counter() - t1, 1e-9) / c
@@ -535,24 +540,26 @@ class _UnitRunner:
         # prefix-cache seeding: cached KV blocks stand in for the first P
         # prompt tokens, pinned until the sequence completes
         cache = eng.kvcaches.get(self.m.mid)
-        hit, p0, ks, vs = None, 0, [], []
+        hit, pfx = None, None
         if cache is not None and plen > 1 \
                 and plen <= eng.cfg.prefix_max_prompt:
             hit = cache.lookup(ptoks, max_tokens=plen - 1)
             if hit:
-                pfx_k, pfx_v = eng._gather_prefix(hit)
-                p0 = pfx_k.shape[1]
-                ks, vs = [pfx_k], [pfx_v]
+                pfx = eng._gather_prefix(hit)
+        p0 = pfx[0].shape[1] if pfx else 0
         eng.stats["prefill_tokens"] += plen - p0
         npg = -(-(plen + run_new) // self.ps)
         tab = np.zeros((self.mp,), np.int32)
         pids = [self.free.pop() for _ in range(npg)]
         tab[:npg] = pids
         seq = SeqState(task=task, plen=plen, n_new=run_new, prefill_done=p0)
-        self.states[id(seq)] = {
+        st = self.states[id(seq)] = {
             "prompt": prompt, "ptoks": ptoks, "tab": tab,
-            "pids": pids, "hit": hit, "k": ks, "v": vs,
-            "out": [], "cur": -1, "len": 0, "first": first}
+            "pids": pids, "pages": torch.as_tensor(pids, device=self.dev),
+            "hit": hit, "out": [], "cur": -1, "len": 0, "first": first}
+        if pfx:
+            # the cached blocks' K/V (latent) go straight into the pages
+            self._write_rows(st, 0, [t.to(self.dev) for t in pfx])
         ub.join(seq, now)
 
     def release(self, seq: SeqState | None) -> None:
@@ -583,19 +590,19 @@ class _UnitRunner:
                 toks[0, :c] = st["prompt"][s.prefill_done:s.prefill_done + c]
                 toks = torch.from_numpy(toks).to(self.dev)
             with tel.span("runner.kv_in"):
-                if st["k"]:
-                    pk = torch.cat(st["k"], dim=1)[:, None].to(self.dev)
-                    pv = torch.cat(st["v"], dim=1)[:, None].to(self.dev)
-                else:
-                    pk = pv = self._empty_kv()
-            with tel.span("runner.chunk_launch"):
-                logits, kn, vn = profiled("chunk_prefill", self._chunk,
-                                          eng.params, toks, pk, pv,
-                                          last=c - 1, kv_len=self.kv_len)
+                pre = (self._read_rows(st, s.prefill_done)
+                       if s.prefill_done else self._empty_kv())
+            counts = dict(model_trace.COUNTS)
+            with tel.span("runner.chunk_launch"), \
+                    model_trace.recording(tel):
+                logits, *new = profiled("chunk_prefill", self._chunk,
+                                        eng.params, toks, *pre,
+                                        last=c - 1, kv_len=self.kv_len)
                 _sync(self.dev)
             with tel.span("runner.kv_out"):
-                st["k"].append(kn[:, 0, :c].cpu())
-                st["v"].append(vn[:, 0, :c].cpu())
+                self._write_rows(st, s.prefill_done,
+                                 [t[:, 0, :c] for t in new])
+            self._count_model(counts)
             stats["chunk_launches"] += 1
             stats["chunk_rows"] += c
             stats["chunk_cells"] += c * (s.prefill_done + c)
@@ -604,8 +611,8 @@ class _UnitRunner:
             self._obs_rate("rp", (time.perf_counter() - t0) / c)
             if s.prefill_done + c >= s.plen:
                 # final chunk: its last-position logits yield the first new
-                # token (what the sequential prefill's argmax produces) and
-                # the accumulated KV commits to this sequence's pages; a
+                # token (what the sequential prefill's argmax produces), and
+                # the prompt's KV is in this sequence's pages; a
                 # continuation's first new token is the boundary token
                 with tel.span("runner.sample"):
                     st["cur"] = (st["first"] if st["first"] is not None
@@ -617,8 +624,7 @@ class _UnitRunner:
                         r.t_first = wall
                         tel.metrics.observe("prefill_wait_s",
                                             wall - r.t_admit)
-                with tel.span("runner.kv_in"):
-                    self._commit(s, st)
+                st["len"] = s.plen
             vc += c * self.rp * self._ticks
         vd = 0.0
         k = len(plan.decode)
@@ -637,12 +643,16 @@ class _UnitRunner:
                 tabs = torch.from_numpy(tabs).to(self.dev)
                 lens = torch.from_numpy(lens).to(self.dev)
                 toks = torch.from_numpy(toks).to(self.dev)
-            with tel.span("runner.decode_launch"):
+            counts = dict(model_trace.COUNTS)
+            with tel.span("runner.decode_launch"), \
+                    model_trace.recording(tel):
                 logits, kp, vp = profiled(
                     "paged_decode_step", self._pdec, eng.params,
-                    self.pages["kp"], self.pages["vp"], tabs, lens, toks)
+                    self.pages["kp"], self.pages["vp"], tabs, lens, toks,
+                    **({"n_rows": k} if self._real_rows else {}))
                 _sync(self.dev)
             self.pages = {"kp": kp, "vp": vp}
+            self._count_model(counts)
             with tel.span("runner.sample"):
                 nxt = torch.argmax(logits, dim=-1).tolist()
                 for i, st in enumerate(sts):
@@ -658,22 +668,35 @@ class _UnitRunner:
         stats["cost"] += dt * self.m.cost_rate
         return dt
 
-    def _commit(self, s: SeqState, st: dict) -> None:
-        """Scatter the sequence's accumulated prefill KV into its pages."""
-        kk = torch.cat(st["k"], dim=1)           # (L, plen, Hkv, hd)
-        vv = torch.cat(st["v"], dim=1)
-        st["k"], st["v"] = [kk], [vv]
-        npg = -(-s.plen // self.ps)
-        pad = (0, 0, 0, 0, 0, npg * self.ps - s.plen)
-        shape = (kk.shape[0], npg, self.ps) + tuple(kk.shape[2:])
-        pids = torch.as_tensor(st["pids"][:npg], device=self.dev)
-        # in place: the arena is the unit's own, written only here and by
-        # the decode step
-        self.pages["kp"][:, pids] = F.pad(kk, pad).reshape(shape).to(
-            self.dev, self.pages["kp"].dtype)
-        self.pages["vp"][:, pids] = F.pad(vv, pad).reshape(shape).to(
-            self.dev, self.pages["vp"].dtype)
-        st["len"] = s.plen
+    def _count_model(self, before: dict) -> None:
+        """What the model counted (``models.trace.COUNTS``) since
+        ``before``, into the engine's stats."""
+        stats = self.eng.stats
+        for name, n in model_trace.COUNTS.items():
+            stats[name] += n - before[name]
+
+    def _write_rows(self, st: dict, start: int, parts) -> None:
+        """Write a sequence's prefill K and V ((L, n, Hkv, hd) each), or its
+        latent rows ((L, n, r + dr)), at positions ``start`` .. ``start +
+        n - 1`` of its pages, in place: the arena is the unit's own,
+        written only here and by the decode step."""
+        pos = torch.arange(start, start + parts[0].shape[1], device=self.dev)
+        page, slot = st["pages"][pos // self.ps], pos % self.ps
+        for name, t in zip(self._pools, parts):
+            self.pages[name][:, page, slot] = t.to(self.pages[name].dtype)
+
+    def _read_rows(self, st: dict, n: int) -> list:
+        """The first ``n`` positions of a sequence's pages: its prefill's
+        K and V (latent) as the chunked prefill takes them, (L, 1, n, ...)
+        each, gathered on the card."""
+        npg = -(-n // self.ps)
+        out = []
+        for name in self._pools:
+            pool = self.pages[name]
+            rows = pool[:, st["pages"][:npg]]
+            out.append(rows.reshape((pool.shape[0], npg * self.ps)
+                                    + tuple(pool.shape[3:]))[:, None, :n])
+        return out
 
     # -- completion -----------------------------------------------------------
     def complete(self, s: SeqState) -> None:
@@ -686,9 +709,17 @@ class _UnitRunner:
         cache = eng.kvcaches.get(self.m.mid)
         if cache is not None and s.plen > 1 \
                 and s.plen <= eng.cfg.prefix_max_prompt:
-            kk, vv = st["k"][0], st["v"][0]
-            cache.insert(st["ptoks"],
-                         lambda s0, s1: (kk[:, s0:s1], vv[:, s0:s1]))
+            rows = []
+
+            def payload(s0, s1):
+                """A new block's K/V (latent) on the host: the prompt's
+                rows are read off the pages and downloaded once, at the
+                first block the cache lacks."""
+                if not rows:
+                    rows.extend(t[:, 0].cpu()
+                                for t in self._read_rows(st, s.plen))
+                return tuple(t[:, s0:s1] for t in rows)
+            cache.insert(st["ptoks"], payload)
             if st["hit"]:
                 cache.release(st["hit"])
         self.free.extend(st["pids"])
@@ -754,8 +785,9 @@ class EngineConfig:
     # ``batching.max_batch`` sequences under a per-step token budget —
     # chunked prefills coexist with batched paged decodes instead of
     # head-of-line blocking them.  None keeps the run-to-completion path
-    # (and every existing trace) bit-identical.  Dense and vlm only: the
-    # paged arena refuses every other family, as the JAX unit runner's does.
+    # (and every existing trace) bit-identical.  Dense and vlm (and latent
+    # attention) only: the paged arena refuses every other family, as the
+    # JAX unit runner's does.
     batching: StepBatchingConfig | None = None
     # prefill/decode disaggregation (DESIGN.md §2.13): the KV transfer
     # pricing used for handoff scheduling when the fleet declares phase
@@ -829,7 +861,12 @@ class ServingEngine(Substrate):
                       "chunk_launches": 0, "chunk_rows": 0,
                       "chunk_cells": 0, "chunk_cells_launched": 0,
                       "chunk_attn_cells": 0,
-                      "decode_launches": 0, "decode_rows": 0}
+                      "decode_launches": 0, "decode_rows": 0,
+                      # what the model computed (``models.trace``): expert
+                      # rows (real rows only), latent tokens decompressed
+                      # for the chunks
+                      "moe_real_rows": 0,
+                      "mla_expand_tokens": 0}
         self._tel = None                    # obs.Telemetry once attached
         self.cp = ControlPlane(self, cfg.control())
         #: per-unit paged KV caches, mid -> PrefixKVCache (DESIGN.md §2.4 /
@@ -843,7 +880,8 @@ class ServingEngine(Substrate):
         self._retired_kv = {"hits": 0, "tokens_reused": 0, "lookups": 0,
                             "inserts": 0, "evictions": 0}
         self._kv_enabled = (cfg.prefix_cache and not self._stub
-                            and model_cfg.family in ("dense", "vlm"))
+                            and (model_cfg.family in ("dense", "vlm")
+                                 or model_cfg.mla is not None))
         if self._kv_enabled:
             # PREFIX-level similarity scoring reads the best match across
             # every unit's trie (admission accounting + cross-plane routing)
@@ -1081,10 +1119,10 @@ class ServingEngine(Substrate):
         return mu * (1.0 + blk.hits) / age
 
     def _gather_prefix(self, hit):
-        """Concatenate pinned block payloads into (L, P, Hkv, hd) host KV."""
-        ks = [b.payload[0] for b in hit.blocks]
-        vs = [b.payload[1] for b in hit.blocks]
-        return torch.cat(ks, dim=1), torch.cat(vs, dim=1)
+        """Concatenate pinned block payloads into (L, P, Hkv, hd) host K
+        and V (latent attention: one (L, P, r + dr) host latent)."""
+        return tuple(torch.cat(parts, dim=1)
+                     for parts in zip(*(b.payload for b in hit.blocks)))
 
     # -- step-level batching substrate (DESIGN.md §2.10) -----------------------
     def _unit_batch(self, m: Machine) -> UnitBatch:
@@ -1270,12 +1308,12 @@ class ServingEngine(Substrate):
         wall, kv_out = unit.execute(task, reqs, self._rng,
                                     buckets=self.cfg.batch_buckets,
                                     prefix=prefix)
-        if reusable and kv_out is not None and "k" in kv_out:
-            kk, vv = kv_out["k"], kv_out["v"]
+        names = T.kv_names(self.model_cfg)
+        if reusable and kv_out is not None and names[0] in kv_out:
+            parts = [kv_out[name] for name in names]
             cache.insert(
                 prompt,
-                lambda s0, s1: (kk[:, 0, s0:s1].cpu(),
-                                vv[:, 0, s0:s1].cpu()))
+                lambda s0, s1: tuple(t[:, 0, s0:s1].cpu() for t in parts))
         if hit is not None and hit:
             cache.release(hit)
         self.stats["executions"] += 1

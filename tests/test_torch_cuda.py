@@ -36,11 +36,23 @@ yi-9b's and qwen1.5's widths over prefixes and real-row counts that cross
 its tiles (padding rows zeros), gives a row the same bits wherever the
 prompt is cut, is launched once a layer with no padded score tile in
 memory, and keeps the engine's batched tokens equal to one-at-a-time ones
-at smollm's widths.
+at smollm's widths.  DeepSeek-V2-Lite's latent attention: the chunk
+kernel at keys of 192, values of 128 and its softmax scale, and the paged
+kernel's latent instance at its full widths, are held per element to
+twice their rounding bounds against plain f32 attention (the latent
+instance gives a row the same bits in any batch); smollm's instances of
+both kernels keep the bits the tree before them gave
+(``test_smollm_instances_keep_their_bits``); the batched engine serves the
+model at full widths (two layers) with the served tokens' logits within a
+stated gap of the plain reference's best.
 """
 
 import ctypes
+import hashlib
+import importlib.util
 import itertools
+import math
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -51,7 +63,8 @@ from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.chunk_attention.ops import (HEAD_DIMS,
                                                      chunk_attention_cuda)
 from repro_torch.kernels.decode_attention.ops import (
-    decode_attention_cuda, paged_decode_attention_cuda)
+    decode_attention_cuda, paged_decode_attention_cuda,
+    paged_mla_decode_attention_cuda)
 from repro_torch.kernels.decode_attention.ref import (
     decode_attention_ref, decode_attention_split_ref,
     paged_decode_attention_ref, paged_decode_attention_split_ref)
@@ -856,7 +869,7 @@ def test_chunk_attention_against_full_attention(cuda, h, hkv, hd, p, n_rows,
     _assert_within_rounding(got, q, pk, pv, k, v, n_rows)
 
 
-def _assert_within_rounding(got, q, pk, pv, k, v, n_rows):
+def _assert_within_rounding(got, q, pk, pv, k, v, n_rows, scale=None):
     """``got`` against ``full_attention`` in f32 over the real rows, each
     element within twice the most the kernel's two bf16 roundings can move
     it: rounding each probability p_j before P.V moves an output by at
@@ -869,9 +882,11 @@ def _assert_within_rounding(got, q, pk, pv, k, v, n_rows):
     kk = L._repeat_kv(torch.cat([pk, k[:, :n_rows]], dim=1).float(), g)
     vv = L._repeat_kv(torch.cat([pv, v[:, :n_rows]], dim=1).float(), g)
     qr = q[:, :n_rows].float()
-    want = L.full_attention(qr, kk, vv, causal=True, q_offset=pk.shape[1])
+    want = L.full_attention(qr, kk, vv, causal=True, q_offset=pk.shape[1],
+                            scale=scale)
     tol = 2.0 ** -8 * (L.full_attention(qr, kk, vv.abs(), causal=True,
-                                        q_offset=pk.shape[1]) + want.abs())
+                                        q_offset=pk.shape[1], scale=scale)
+                       + want.abs())
     err = (got[:, :n_rows].float() - want).abs()
     assert (err <= tol).all(), \
         f"max |err| / bound {float((err / tol).max()):.3g}"
@@ -958,7 +973,8 @@ def test_chunk_attention_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="rows"):
         chunk_attention_cuda(q, pk.transpose(1, 2).contiguous()
                              .transpose(1, 2), pv, k, v, 16)
-    assert 64 in HEAD_DIMS and 128 in HEAD_DIMS
+    assert (64, 64) in HEAD_DIMS and (128, 128) in HEAD_DIMS
+    assert (192, 128) in HEAD_DIMS
 
 
 def test_chunked_prefill_launches_the_kernel_per_layer(cuda):
@@ -1276,3 +1292,190 @@ def test_forward_only_kernels_refuse_to_cut_the_graph(cuda, kernel):
     with torch.no_grad():
         fn(*args)
     fn(*[a.detach() if torch.is_tensor(a) else a for a in args])
+
+
+# ---------------------------------------------------------------------------
+# DeepSeek-V2-Lite's latent attention
+# ---------------------------------------------------------------------------
+
+#: the softmax scale of DeepSeek-V2-Lite: (128 + 64)^-1/2 times YaRN's
+#: mscale(40, 0.707) squared
+MLA_SIGMA = 192 ** -0.5 * (0.1 * 0.707 * math.log(40) + 1) ** 2
+
+
+@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("n_rows", [1, 63, 1000, 2048])
+@pytest.mark.parametrize("p", [0, 17, 6144])
+def test_chunk_attention_at_latent_widths(cuda, p, n_rows, b):
+    """The chunk kernel's (192, 128) instance with the model's scale, on
+    the chunk's real rows only (the K/V of a latent chunk hold its real
+    rows), against ``full_attention`` in f32, each element within twice
+    its rounding bound (``_assert_within_rounding``)."""
+    g = torch.Generator(device=cuda).manual_seed(p + n_rows + b)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=g, device=cuda).bfloat16()
+    q = draw(b, CHUNK_S, 16, 192)
+    pk, pv = draw(b, p, 16, 192), draw(b, p, 16, 128)
+    k, v = draw(b, n_rows, 16, 192), draw(b, n_rows, 16, 128)
+    got = chunk_attention_cuda(q, pk, pv, k, v, n_rows, MLA_SIGMA)
+    torch.cuda.synchronize()
+    assert got.shape == (b, CHUNK_S, 16, 128)
+    _assert_within_rounding(got, q, pk, pv, k, v, n_rows, MLA_SIGMA)
+
+
+def _mla_pages(cuda, lens, mp=1056, ps=16, seed=0):
+    """Latent pages (NP, PS, 576) with page 0 poisoned, each sequence's
+    pages drawn apart, and absorbed queries (B, 16, 576)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    b = len(lens)
+    n_pages = sum(-(-n // ps) for n in lens) + 1
+    pages = torch.randn((n_pages, ps, 576), generator=g,
+                        device=cuda).bfloat16()
+    pages[0] = 1000.0
+    q = torch.randn((b, 16, 576), generator=g, device=cuda).bfloat16()
+    perm = torch.randperm(n_pages - 1, generator=torch.Generator()
+                          .manual_seed(seed)) + 1
+    tab = torch.zeros((b, mp), dtype=torch.int32)
+    at = 0
+    for i, n in enumerate(lens):
+        npg = -(-n // ps)
+        tab[i, :npg] = perm[at:at + npg]
+        at += npg
+    return (q, pages, tab.to(cuda),
+            torch.tensor(lens, dtype=torch.int32, device=cuda))
+
+
+def _mla_plain(q, pages, tab, lens, scale):
+    """The latent attention in f32 (outputs) and its attention of |v|."""
+    ps = pages.shape[1]
+    out, att_abs = [], []
+    for i in range(q.shape[0]):
+        n = int(lens[i])
+        rows = pages[tab[i, :-(-n // ps)].long()].reshape(-1, 576)[:n]
+        p = torch.softmax(q[i].float() @ rows.float().T * scale, -1)
+        v = rows[:, :512].float()
+        out.append(p @ v)
+        att_abs.append(p @ v.abs())
+    return torch.stack(out), torch.stack(att_abs)
+
+
+@pytest.mark.parametrize("lens", [[1], [16, 17, 300, 4096],
+                                  [16896] * 2 + [5000] * 30],
+                         ids=["1", "4-rows", "32-rows"])
+def test_paged_mla_kernel_against_plain(cuda, lens):
+    """The latent instance of ``paged_decode_kernel`` at DeepSeek-V2-Lite's
+    widths (16 heads over 576-wide rows, values their first 512 columns)
+    against plain f32 attention over the same pages, each element within
+    twice its two bf16 roundings (2^-9 of the attention of |v| for P, 2^-9
+    of the output), and every row alone in a batch of padding rows with
+    the same bits as in the batch."""
+    q, pages, tab, ln = _mla_pages(cuda, lens, seed=len(lens))
+    got = paged_mla_decode_attention_cuda(q, pages, tab, ln, MLA_SIGMA)
+    torch.cuda.synchronize()
+    want, att_abs = _mla_plain(q, pages, tab, ln, MLA_SIGMA)
+    err = (got.float() - want).abs()
+    tol = 2.0 ** -8 * (att_abs + want.abs())
+    assert (err <= tol).all(), float((err / tol).max())
+    for i in range(min(len(lens), 4)):
+        pad = torch.zeros_like(ln)
+        pad[0] = ln[i]
+        t = torch.zeros_like(tab)
+        t[0] = tab[i]
+        qa = torch.zeros_like(q)
+        qa[0] = q[i]
+        alone = paged_mla_decode_attention_cuda(qa, pages, t, pad, MLA_SIGMA)
+        assert torch.equal(alone[0], got[i])
+        assert not alone[1:].any()
+
+
+#: sha256 of smollm-360m's kernel outputs on the seeded inputs of
+#: ``_smollm_kernel_bits``, as the tree before the latent instances gave
+#: them on the H100 (chunk kernel <64>, paged decode kernel <3, 64>)
+SMOLLM_BITS = {
+    "chunk": "c57dcdf88de5f03e7544923011ce8e14008a7a3b479999c0beb14666ecb1ea70",
+    "paged": "2d43ac91b46765860a97de8763b01c53f6e66626935183225791e6fe7c6fb5c0"}
+
+
+def _smollm_kernel_bits(cuda) -> dict:
+    """The two kernels at smollm-360m's widths (15/5 heads of 64) on seeded
+    inputs: a 1,000-row chunk after 1,900 prefix keys, and a paged decode
+    step of 8 rows; the sha256 of each output's bytes."""
+    q, pk, pv, k, v = _chunk_inputs(cuda, 1, 1900, 15, 5, 64, seed=41)
+    chunk = chunk_attention_cuda(q, pk, pv, k, v, 1000)
+    paged = paged_decode_attention_cuda(*_paged(cuda, 8, seed=42))
+    torch.cuda.synchronize()
+    return {name: hashlib.sha256(t.view(torch.int16).cpu().numpy()
+                                 .tobytes()).hexdigest()
+            for name, t in (("chunk", chunk), ("paged", paged))}
+
+
+def test_smollm_instances_keep_their_bits(cuda):
+    """smollm's instances of both kernels give the bits they gave before
+    the latent instances and the value width were added."""
+    got = _smollm_kernel_bits(cuda)
+    assert got == SMOLLM_BITS, got
+
+
+def _dsv2_reference():
+    path = Path(__file__).resolve().parents[1] / "perfbench" / \
+        "reference" / "deepseek_v2.py"
+    spec = importlib.util.spec_from_file_location("dsv2_reference_card",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_engine_serves_deepseek_v2_lite_at_full_widths(cuda):
+    """DeepSeek-V2-Lite at its published widths, two layers (the dense one
+    and one of 64 experts), through the batched engine on the card: both
+    kernels' latent instances run (one chunk launch and one latent decode
+    launch a layer), and every served token's reference logit lies within
+    0.25 of the plain f32 reference's best at its position (the
+    benchmark's check; its cells read 0.03-0.10 on served tokens)."""
+    from repro_torch.configs.registry import PORT_ARCHS
+    from repro_torch.models.transformer import init_params
+    cfg = PORT_ARCHS["deepseek-v2-lite"].scaled(n_layers=2, remat=False)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         cuda)
+    rng = np.random.default_rng(13)
+    prompts = [tuple(int(x) for x in rng.integers(1, cfg.vocab, n))
+               for n in (40, 700, 3000, 2100)]
+    eng = ServingEngine(cfg, params, EngineConfig(
+        n_units=1, elasticity=None, merging="none", pruning=None,
+        result_cache=False, max_len=3200, batch_buckets=(1,),
+        kv_cache_blocks=256, prefix_max_prompt=3200,
+        batching=StepBatchingConfig(max_batch=4, step_token_budget=1024)),
+        device=cuda)
+    reqs = [Request(prompt=p, n_new=8, deadline=1e9) for p in prompts]
+    reset_launch_counts()
+    stats = eng.run([(float(i), r) for i, r in enumerate(reqs)])
+    counts = launch_counts()
+    assert stats["completed"] == len(prompts)
+    assert counts["chunk_attention"] == cfg.n_layers * stats["chunk_launches"]
+    assert counts["paged_mla_decode_attention"] == \
+        cfg.n_layers * stats["decode_launches"] > 0
+    assert stats["moe_real_rows"] > 0
+    ref = _dsv2_reference()
+    conf = {"num_hidden_layers": 2, "hidden_size": 2048,
+            "num_attention_heads": 16, "kv_lora_rank": 512,
+            "qk_nope_head_dim": 128, "qk_rope_head_dim": 64,
+            "v_head_dim": 128, "rope_theta": 10000.0, "rms_norm_eps": 1e-6,
+            "rope_scaling": {"type": "yarn", "factor": 40,
+                             "original_max_position_embeddings": 4096,
+                             "beta_fast": 32, "beta_slow": 1,
+                             "mscale": 0.707, "mscale_all_dim": 0.707},
+            "first_k_dense_replace": 1, "q_lora_rank": None,
+            "n_routed_experts": 64, "num_experts_per_tok": 6,
+            "norm_topk_prob": False, "routed_scaling_factor": 1.0,
+            "vocab_size": cfg.vocab}
+    del eng
+    with torch.no_grad():
+        lg = ref.logits(conf, params, [p + tuple(r.tokens[:-1]) for p, r
+                                       in zip(prompts, reqs)],
+                        [len(p) - 1 for p in prompts])
+    for r, l in zip(reqs, lg):
+        tok = torch.tensor(r.tokens, device=cuda)[:, None]
+        gap = float((l.max(-1).values - l.gather(-1, tok)[:, 0]).max())
+        assert gap <= 0.25, gap

@@ -38,6 +38,7 @@ from repro_torch.bridge import params_from_jax, to_tensor
 from repro_torch.configs import registry
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from torch_jax_side import config_fields
 
 LOGIT_TOL = 5e-2
 BF16_TOL = 5e-2
@@ -154,9 +155,9 @@ def _check_tokens(tl, jl, tol):
 def test_registry_is_the_same():
     assert list(registry.ARCHS) == list(jax_registry.ARCHS)
     for name in ARCH_NAMES:
-        assert dataclasses.asdict(registry.get_arch(name)) == \
+        assert config_fields(registry.get_arch(name)) == \
             dataclasses.asdict(jax_registry.get_arch(name))
-        assert dataclasses.asdict(registry.get_arch(name).reduced()) == \
+        assert config_fields(registry.get_arch(name).reduced()) == \
             dataclasses.asdict(jax_registry.get_arch(name).reduced())
     for shape in jax_registry.SHAPES:
         assert dataclasses.asdict(registry.get_shape(shape)) == \

@@ -45,7 +45,8 @@ from repro_torch.kernels.chunk_attention.ops import (chunk_attention,
 from repro_torch.kernels.decode_attention import ops as attn_ops
 from repro_torch.kernels.decode_attention.ops import (
     SPLIT_GRANULE, SPLIT_RANKS, decode_attention, decode_attention_cuda,
-    paged_decode_attention, paged_decode_attention_cuda, tune_block_s)
+    paged_decode_attention, paged_decode_attention_cuda,
+    paged_mla_decode_attention, tune_block_s)
 from repro_torch.kernels.decode_attention import ref as attn_ref
 from repro_torch.kernels.decode_attention.ref import (
     decode_attention_ref, decode_attention_split_ref,
@@ -677,9 +678,14 @@ class TestWrappers:
         pet, pct, dl = _pmf_data(2, 4, 4)
         pmf_conv(*map(torch.from_numpy, (pet, pct, dl)))
         chunk_attention(*_chunk_data(), 5)
+        paged_mla_decode_attention(
+            torch.ones((1, 2, 24)), torch.ones((3, 4, 24)),
+            torch.tensor([[1, 2]], dtype=torch.int32),
+            torch.tensor([5], dtype=torch.int32), 0.1, 16)
         assert launch_counts() == {"chunk_attention": 0,
                                    "decode_attention": 0,
                                    "paged_decode_attention": 0,
+                                   "paged_mla_decode_attention": 0,
                                    "rmsnorm": 0, "rmsnorm_bwd": 0,
                                    "pmf_conv": 0}
 

@@ -26,6 +26,7 @@ from repro_torch.bridge import params_from_jax, to_tensor
 from repro_torch.configs.registry import ARCHS, get_arch
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from torch_jax_side import config_fields
 
 LOGIT_TOL = 5e-2
 BF16_TOL = 5e-2
@@ -86,12 +87,12 @@ def test_configs_are_the_same(model):
     and reduced (sub-configs compared field by field: they are the two
     packages' own dataclasses)."""
     cfg, jcfg, _, _ = model
-    assert cfg.__dict__ == jcfg.__dict__
+    assert config_fields(cfg) == dataclasses.asdict(jcfg)
     assert sorted(ARCHS) == sorted(JAX_ARCHS)
     for name, full in JAX_ARCHS.items():
         for a, b in ((get_arch(name), full),
                      (get_arch(name).reduced(), full.reduced())):
-            assert dataclasses.asdict(a) == dataclasses.asdict(b), name
+            assert config_fields(a) == dataclasses.asdict(b), name
 
 
 def test_torch_init_matches_jax_shapes_and_dtypes(model):

@@ -210,11 +210,13 @@ def test_same_record_same_fit_and_drift(cfg_kw, n_units, trace_kw):
                             cfg_kw, n_units, jax=True)
     record = _json_roundtrip(ours.to_artifact())
     # both stub engines record the same artifact, host wall times aside;
-    # the port's unit-runner launch counters stay 0 on a stub engine
+    # the port's unit-runner launch counters (and the model's counts it
+    # adds up) stay 0 on a stub engine
     walls = ("mapping_wall_s", "pruning_wall_s")
     launches = ("chunk_launches", "chunk_rows", "chunk_cells",
                 "chunk_cells_launched", "chunk_attn_cells", "decode_launches",
-                "decode_rows")
+                "decode_rows", "moe_real_rows",
+                "mla_expand_tokens")
     assert {k: v for k, v in record.items() if k != "stats"} == \
         {k: v for k, v in _json_roundtrip(ref.to_artifact()).items()
          if k != "stats"}

@@ -179,3 +179,26 @@ def both(run):
     port, ref = run(PORT), run(JAX)
     assert same(port) == same(ref)
     return port
+
+
+#: the port's config fields that the JAX package's dataclasses lack (latent
+#: attention and DeepSeek-V2's gates), each at the value that leaves a JAX
+#: twin's model as JAX's: no latent attention, renormalised gates, no scale
+PORT_ONLY_CONFIG = {"mla": None, "moe": {"norm_topk_prob": True,
+                                          "routed_scaling_factor": 1.0}}
+
+
+def config_fields(cfg) -> dict:
+    """A port ``ModelConfig`` as ``dataclasses.asdict`` with the fields the
+    JAX package lacks taken out, after asserting each holds the value that
+    keeps the model JAX's (``PORT_ONLY_CONFIG``): comparable with the JAX
+    config's ``asdict``."""
+    d = dataclasses.asdict(cfg)
+    for key, want in PORT_ONLY_CONFIG.items():
+        if isinstance(want, dict):
+            if d[key] is not None:
+                for k, v in want.items():
+                    assert d[key].pop(k) == v, (cfg.name, key, k)
+        else:
+            assert d.pop(key) == want, (cfg.name, key)
+    return d
