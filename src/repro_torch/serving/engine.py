@@ -709,17 +709,25 @@ class _UnitRunner:
         cache = eng.kvcaches.get(self.m.mid)
         if cache is not None and s.plen > 1 \
                 and s.plen <= eng.cfg.prefix_max_prompt:
-            rows = []
+            blocks = []
+            stats, bs = eng.stats, cache.block_size
 
             def payload(s0, s1):
                 """A new block's K/V (latent) on the host: the prompt's
                 rows are read off the pages and downloaded once, at the
-                first block the cache lacks."""
-                if not rows:
-                    rows.extend(t[:, 0].cpu()
-                                for t in self._read_rows(st, s.plen))
-                return tuple(t[:, s0:s1] for t in rows)
-            cache.insert(st["ptoks"], payload)
+                first block the cache lacks, and split into every block's
+                views at once (the cache asks for whole aligned blocks)."""
+                if not blocks:
+                    t0 = time.perf_counter()
+                    rows = [t[:, 0].cpu()
+                            for t in self._read_rows(st, s.plen)]
+                    stats["kv_download_wall_s"] += time.perf_counter() - t0
+                    blocks.extend(zip(*(t.split(bs, dim=1) for t in rows)))
+                return blocks[s0 // bs]
+            t0 = time.perf_counter()
+            with eng.cp.tel.span("kv.insert"):
+                cache.insert(st["ptoks"], payload)
+            stats["kv_insert_wall_s"] += time.perf_counter() - t0
             if st["hit"]:
                 cache.release(st["hit"])
         self.free.extend(st["pids"])
@@ -866,7 +874,10 @@ class ServingEngine(Substrate):
                       # rows (real rows only), latent tokens decompressed
                       # for the chunks
                       "moe_real_rows": 0,
-                      "mla_expand_tokens": 0}
+                      "mla_expand_tokens": 0,
+                      # the unit runners' prefix-cache inserts at
+                      # completion, and the prompt downloads inside them
+                      "kv_insert_wall_s": 0.0, "kv_download_wall_s": 0.0}
         self._tel = None                    # obs.Telemetry once attached
         self.cp = ControlPlane(self, cfg.control())
         #: per-unit paged KV caches, mid -> PrefixKVCache (DESIGN.md §2.4 /

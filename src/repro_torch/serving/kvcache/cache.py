@@ -10,7 +10,9 @@ Facade over :class:`BlockPool` + :class:`PrefixIndex`:
   * eviction — when the pool is exhausted, unpinned trie leaves are scored
     by ``value_fn`` (the pruning chapter's "not worth pursuing" economics
     applied to residency: expected time saved by a future hit, decayed by
-    idle age) and the cheapest are recycled.
+    idle age) and the cheapest are recycled.  An insert gathers and scores
+    its candidates once, at the first block the full pool lacks, and pops
+    its victims from a heap (:meth:`PrefixKVCache._frontier`).
 
 The payload is opaque: the serving engine stores host ``(k, v)`` arrays;
 the discrete-event simulator stores nothing and uses the same admission/
@@ -20,6 +22,7 @@ stay importable by the pure-numpy simulation path.
 
 from __future__ import annotations
 
+import heapq
 from dataclasses import dataclass, field
 
 from .pool import Block, BlockPool
@@ -112,16 +115,19 @@ class PrefixKVCache:
     def insert(self, tokens, payload_fn=None) -> int:
         """Index every whole-block span of ``tokens`` not cached yet.
 
-        Returns the number of newly admitted blocks.  Stops early when the
-        pool is exhausted and nothing evictable remains (everything pinned):
-        an interior gap would break the prefix property, so admission is
-        strictly left-to-right.
+        ``payload_fn(s0, s1)`` gives each admitted block's payload, the
+        tokens ``[s0, s1)``: one whole block, ``s0`` a multiple of the
+        block size.  Returns the number of newly admitted blocks.  Stops
+        early when the pool is exhausted and nothing evictable remains
+        (everything pinned): an interior gap would break the prefix
+        property, so admission is strictly left-to-right.
         """
         now = self._clock_fn()
         bs = self.block_size
         node = self.index.root
         added = 0
         pinned: list[Block] = []     # keep the chain safe from self-eviction
+        frontier = None              # eviction candidates, gathered once
         try:
             for i, span in enumerate(self.index._spans(tokens)):
                 child = node.children.get(span)
@@ -131,8 +137,11 @@ class PrefixKVCache:
                     pinned.append(node.block)
                     continue
                 blk = self.pool.alloc(now=now)
-                if blk is None and self._evict(1):
-                    blk = self.pool.alloc(now=now)
+                if blk is None:
+                    if frontier is None:
+                        frontier = self._frontier(now)
+                    if self._evict_next(frontier, now):
+                        blk = self.pool.alloc(now=now)
                 if blk is None:                 # pool fully pinned
                     self.stats["rejected"] += 1
                     break
@@ -158,28 +167,50 @@ class PrefixKVCache:
             return self._value_fn(blk, now)
         return _default_value(blk, now)
 
-    def _evict(self, need: int) -> bool:
-        """Free ``need`` blocks by pruning the lowest-value unpinned leaves.
-        Removing a leaf may expose its parent; the candidate frontier is
-        refreshed until the demand is met or nothing evictable remains."""
-        now = self._clock_fn()
-        freed = 0
-        while freed < need:
-            candidates = [n for n in self.index.leaves()
-                          if n.block.refcount == 0]
-            if not candidates:
-                return False
-            victim = min(candidates,
-                         key=lambda n: self._block_value(n.block, now))
-            self.index.remove(victim)
-            self.pool.free(victim.block)
-            self.stats["evictions"] += 1
-            if self.tel is not None:
-                self.tel.event(now, "kv_evict", blocks=1,
-                               depth=victim.block.depth, **self.tel_attrs)
-                self.tel.metrics.inc("kv_evictions")
-            freed += 1
+    def _frontier(self, now: float) -> tuple[list, dict]:
+        """The unpinned leaves, each scored once at ``now``, as a heap keyed
+        by ``(value, place)`` (:meth:`PrefixIndex.leaves`), and the walk's
+        places.  Popping it gives the victims, in their order, that
+        re-walking and re-scoring the trie for each block would: the first
+        lowest-value leaf of the walk.  That holds while ``now`` and what
+        the value reads stay fixed and only this frontier's victims leave
+        the trie, as within one insert, whose own new blocks are pinned."""
+        leaves, places = self.index.leaves()
+        heap = [(self._block_value(n.block, now), places[n], n)
+                for n in leaves if n.block.refcount == 0]
+        heapq.heapify(heap)
+        return heap, places
+
+    def _evict_next(self, frontier: tuple[list, dict], now: float) -> bool:
+        """Free the frontier's next victim; its parent, left an unpinned
+        leaf below the root, joins the frontier at its place.  False when
+        the frontier is empty."""
+        heap, places = frontier
+        if not heap:
+            return False
+        _, place, victim = heapq.heappop(heap)
+        parent = victim.parent
+        self.index.remove(victim)
+        self.pool.free(victim.block)
+        self.stats["evictions"] += 1
+        if self.tel is not None:
+            self.tel.event(now, "kv_evict", blocks=1,
+                           depth=victim.block.depth, **self.tel_attrs)
+            self.tel.metrics.inc("kv_evictions")
+        if parent is not self.index.root and not parent.children \
+                and parent.block.refcount == 0:
+            heapq.heappush(heap, (self._block_value(parent.block, now),
+                                  self.index.place(places, parent, place),
+                                  parent))
         return True
+
+    def _evict(self, need: int) -> bool:
+        """Free ``need`` blocks, the lowest-value unpinned leaves first
+        (a removed leaf may expose its parent).  False when nothing
+        evictable remains."""
+        now = self._clock_fn()
+        frontier = self._frontier(now)
+        return all(self._evict_next(frontier, now) for _ in range(need))
 
     # -- introspection ---------------------------------------------------------
     @property

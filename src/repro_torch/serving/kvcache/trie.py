@@ -94,14 +94,47 @@ class PrefixIndex:
         node.parent = None
         self._n_nodes -= 1
 
-    def leaves(self) -> list[TrieNode]:
-        """All removable frontier nodes (eviction candidates)."""
-        out, stack = [], [self.root]
+    def leaves(self) -> tuple[list[TrieNode],
+                              dict[TrieNode, tuple[int, int]]]:
+        """All removable frontier nodes (eviction candidates), and the
+        places the walk records: where a node stands in their order as a
+        leaf, ``(pop rank of its parent, index among its siblings)``, for
+        each leaf and each node with siblings (:meth:`place` gives an only
+        child's).  The leaves come in the order of their places: the leaf
+        children of each node the walk pops, in the order they were added.
+
+        Removing a leaf, or extending a chain, keeps the relative order of
+        the other nodes' places as a later walk would give it, so a node
+        that becomes a leaf later sorts among the others by its place at
+        this walk."""
+        out, places, stack, rank = [], {}, [self.root], 0
         while stack:
             n = stack.pop()
-            for c in n.children.values():
-                if c.is_leaf():
+            # down a chain of only children: each is popped as it is pushed
+            while len(n.children) == 1:
+                (c,) = n.children.values()
+                rank += 1
+                if not c.children:
+                    places[c] = (rank - 1, 0)
                     out.append(c)
-                else:
-                    stack.append(c)
-        return out
+                    break
+                n = c
+            else:
+                for i, c in enumerate(n.children.values()):
+                    places[c] = (rank, i)
+                    if c.children:
+                        stack.append(c)
+                    else:
+                        out.append(c)
+                rank += 1
+        return out, places
+
+    @staticmethod
+    def place(places: dict, node: TrieNode,
+              child: tuple[int, int]) -> tuple[int, int]:
+        """``node``'s place at the :meth:`leaves` walk that recorded
+        ``places``, once its last child, whose place was ``child``, has
+        gone.  An only child has none recorded: the walk pops it right
+        after its parent, so it stands at ``(its own pop rank - 1, 0)``,
+        and its pop rank is the first of its children's places."""
+        return places.get(node, (child[0] - 1, 0))

@@ -204,6 +204,170 @@ class TestPrefixKVCache:
 
 
 # ---------------------------------------------------------------------------
+# eviction: one pass per insert, the reference's victims in its order
+# ---------------------------------------------------------------------------
+
+#: residency values for the eviction tests: the facade's default, one that
+#: buckets depth as the engine's estimator does (ties among leaves of a
+#: quantum), one of two classes (a victim's parent rarely the next victim,
+#: so where it joins the ties matters), and a flat one that leaves every
+#: choice to the tie rule
+VALUES = {
+    "default": None,
+    "bucketed": lambda blk, now: float(max(blk.depth, 1).bit_length())
+    * (1.0 + blk.hits) / max(now - blk.last_used, 1.0),
+    "parity": lambda blk, now: float(blk.depth % 2),
+    "flat": lambda blk, now: 0.0,
+}
+
+
+#: a chain's leaf beside a node popped after it: the walk's ranks make the
+#: leaf's place sort before that node's first child, where equal values
+#: leave the order to the places alone
+CHAIN = (7, 1, [("insert", (1, 10)), ("insert", (1, 11)),
+                ("insert", (2, 20, 21)),
+                ("insert", (3, 30, 31, 32, 33, 34, 35)),
+                ("pin_all",), ("insert", (4, 40))])
+
+
+def _eviction_ops(seed):
+    """A seeded pool geometry and sequence of inserts, pinned lookups held
+    across inserts, releases, a pinning of everything cached (the
+    ``rejected`` path) and clock steps, some of them 0 (equal
+    ``last_used``).  Prompts share prefixes (a few bases, a small
+    vocabulary) and some are longer than the pool.  ``"chain"`` is
+    :data:`CHAIN`."""
+    if seed == "chain":
+        return CHAIN
+    rng = np.random.default_rng(seed)
+    n_blocks, bs = int(rng.integers(8, 65)), int(rng.integers(2, 5))
+    bases = [tuple(rng.integers(0, 4, size=int(rng.integers(0, 6 * bs)))
+                   .tolist()) for _ in range(4)]
+    ops, prompts = [], []
+    for _ in range(80):
+        r = rng.random()
+        if r < 0.1:
+            ops.append(("release",))
+        elif r < 0.13:
+            ops.append(("pin_all",))
+        else:
+            if prompts and rng.random() < 0.4:    # a sibling of an earlier
+                old = prompts[int(rng.integers(0, len(prompts)))]
+                head = old[:bs * int(rng.integers(0, len(old) // bs + 1))]
+                n = int(rng.integers(1, 3 * bs))
+            else:
+                head = bases[int(rng.integers(0, 4))] \
+                    if rng.random() < 0.7 else ()
+                n = int(rng.integers(1, (n_blocks + 6) * bs))
+            prompt = head + tuple(rng.integers(0, 4, size=n).tolist())
+            prompts.append(prompt)
+            ops.append(("lookup" if r < 0.35 else "insert", prompt))
+        ops.append(("tick", float(rng.choice([0.0, 0.0, 1.0, 7.5]))))
+    return n_blocks, bs, ops
+
+
+def _trie(c):
+    """The trie's nodes in walk order: depth, edge and block state."""
+    out, stack = [], [(c.index.root, 0)]
+    while stack:
+        n, d = stack.pop()
+        for ch in n.children.values():
+            b = ch.block
+            out.append((d + 1, ch.edge, b.bid, b.depth, b.refcount, b.hits,
+                        b.last_used))
+            stack.append((ch, d + 1))
+    return out
+
+
+@pytest.mark.parametrize("value", sorted(VALUES))
+@pytest.mark.parametrize("seed", [*range(8), "chain"])
+def test_eviction_matches_the_reference(seed, value):
+    """Seeded insert and lookup sequences on small pools: the port's cache
+    evicts the reference's blocks in its order, ties included, admits as
+    many blocks, keeps the same stats, events and counters, and holds the
+    same trie after every operation."""
+    n_blocks, bs, ops = _eviction_ops(seed)
+
+    def run(s):
+        now = [0.0]
+        c = s.PrefixKVCache(n_blocks, bs, value_fn=VALUES[value],
+                            clock_fn=lambda: now[0])
+        c.tel, c.tel_attrs = s.Telemetry(), {"machine": 1}
+        victims, log, held, seen = [], [], [], []
+        remove = c.index.remove
+
+        def record(node):
+            victims.append((node.edge, node.block.depth))
+            remove(node)
+        c.index.remove = record
+        for op in ops:
+            if op[0] == "tick":
+                now[0] += op[1]
+                continue
+            if op[0] == "insert":
+                seen.append(op[1])
+                out = c.insert(op[1], lambda a, e: (a, e))
+            elif op[0] == "lookup":
+                hit = c.lookup(op[1], max_tokens=len(op[1]) - 1)
+                held.append(hit)
+                out = hit.n_tokens
+            elif op[0] == "release":
+                out = len(held)
+                while held:
+                    c.release(held.pop())
+            else:
+                held += [c.lookup(p) for p in seen]
+                out = sum(h.n_tokens for h in held)
+            log.append((op[0], out, dict(c.stats), _trie(c),
+                        len(victims)))
+        return (victims, log, c.tel.comparable_events(),
+                c.tel.metrics.snapshot()["counters"])
+
+    victims, log, _, _ = both(run)
+    # not vacuous: blocks were evicted, and an insert met a pinned pool
+    assert victims and log[-1][2]["rejected"] > 0
+
+
+def test_eviction_walks_and_scores_once_per_insert():
+    """A full 3,072-block pool of 16-token blocks: a 2,048-token unique
+    prompt evicts 128 blocks with one walk of the trie, and scores each
+    candidate once (the frontier, and each parent its victims expose)."""
+    from torch_jax_side import PORT
+    rng = np.random.default_rng(5)
+    calls = [0]
+
+    def value(blk, now):
+        calls[0] += 1
+        return (1.0 + blk.hits) / max(now - blk.last_used, 1.0)
+    now = [0.0]
+    c = PORT.PrefixKVCache(3072, 16, value_fn=value, clock_fn=lambda: now[0])
+    shared = tuple(rng.integers(0, 50_000, size=512).tolist())
+    while c.pool.n_free:
+        n = int(rng.integers(512, 6144))
+        head = shared[:int(rng.integers(0, 512))] if rng.random() < 0.5 \
+            else ()
+        c.insert(head + tuple(rng.integers(0, 50_000, size=n).tolist()))
+        now[0] += 1.0
+    walks = []
+    leaves = c.index.leaves
+
+    def counted(*a):
+        out = leaves(*a)
+        walks.append(len(out[0]))
+        return out
+    c.index.leaves = counted
+    calls[0] = 0
+    ev0 = c.stats["evictions"]
+    prompt = tuple(rng.integers(50_000, 100_000, size=2048).tolist())
+    assert c.insert(prompt) == 128
+    evicted = c.stats["evictions"] - ev0
+    assert evicted == 128 and len(walks) == 1
+    assert walks[0] > 1
+    assert calls[0] <= walks[0] + evicted
+    assert c.peek(prompt) == 2048
+
+
+# ---------------------------------------------------------------------------
 # PREFIX merge level
 # ---------------------------------------------------------------------------
 

@@ -211,12 +211,12 @@ def test_same_record_same_fit_and_drift(cfg_kw, n_units, trace_kw):
     record = _json_roundtrip(ours.to_artifact())
     # both stub engines record the same artifact, host wall times aside;
     # the port's unit-runner launch counters (and the model's counts it
-    # adds up) stay 0 on a stub engine
+    # adds up) and its prefix-cache insert walls stay 0 on a stub engine
     walls = ("mapping_wall_s", "pruning_wall_s")
     launches = ("chunk_launches", "chunk_rows", "chunk_cells",
                 "chunk_cells_launched", "chunk_attn_cells", "decode_launches",
                 "decode_rows", "moe_real_rows",
-                "mla_expand_tokens")
+                "mla_expand_tokens", "kv_insert_wall_s", "kv_download_wall_s")
     assert {k: v for k, v in record.items() if k != "stats"} == \
         {k: v for k, v in _json_roundtrip(ref.to_artifact()).items()
          if k != "stats"}

@@ -5,6 +5,9 @@ case on ``device="cpu"`` with the port's ``init_params`` from a seeded
 ``torch.Generator``; and the task-level fan-out on JAX-bridged weights,
 whose tokens are the JAX engine's."""
 
+import importlib.util
+from pathlib import Path
+
 import jax
 import numpy as np
 import pytest
@@ -19,8 +22,11 @@ from repro_torch.bridge import params_from_jax
 from repro_torch.configs.registry import get_arch
 from repro_torch.core.fleet import FleetSpec
 from repro_torch.models import transformer as T
+from repro_torch.obs import Telemetry
+from repro_torch.serving.batching import StepBatchingConfig
 from repro_torch.serving.engine import EngineConfig, Request, ServingEngine
 
+ROOT = Path(__file__).resolve().parents[1]
 TINY = dict(n_layers=1, d_model=64, n_heads=2, n_kv_heads=2, d_ff=128,
             head_dim=32, remat=False)
 
@@ -300,6 +306,53 @@ class TestPrefixCache:
         for k in ("prefix_hits", "prefix_tokens_reused", "prefix_lookups",
                   "prefix_inserts", "prefix_evictions"):
             assert after[k] == before[k], k
+
+    def test_batched_inserts_count_their_host_seconds(self):
+        """A batched unit whose pool fills: its inserts' host seconds
+        (``kv_insert_wall_s``) hold the prompt downloads inside them
+        (``kv_download_wall_s``), each insert is one ``kv.insert`` span and
+        all that ``runner.complete`` nests, ``prefix_insert_share`` reads
+        the two counters, and the greedy tokens are a cache-off run's."""
+        batching = StepBatchingConfig(max_batch=4, step_token_budget=16)
+        rng = np.random.default_rng(3)
+        prompts = [tuple(rng.integers(1, _CFG.vocab,
+                                      size=int(rng.integers(20, 60)))
+                         .tolist()) for _ in range(10)]
+
+        def trace():
+            return [(float(i), Request(prompt=p, n_new=3, deadline=1e9))
+                    for i, p in enumerate(prompts)]
+        eng = _engine(prefix_cache=True, kv_block_size=4, kv_cache_blocks=12,
+                      batching=batching)
+        tel = Telemetry()
+        eng.attach_telemetry(tel)
+        s0 = eng.collect_stats()
+        tr = trace()
+        s = eng.run(tr)
+        assert s["completed"] == len(prompts) and s["prefix_evictions"] > 0
+        assert s["kv_insert_wall_s"] >= s["kv_download_wall_s"] >= 0.0
+        assert s["kv_insert_wall_s"] > 0.0
+        spans = tel.span_totals()
+        ins, done = spans["kv.insert"], spans["runner.complete"]
+        assert ins["span_n"] == len(prompts)
+        assert done["span_s"] - done["span_self_s"] == \
+            pytest.approx(ins["span_s"], rel=1e-9)
+        path = ROOT / "perfbench" / "metrics" / "prefix_insert_share.py"
+        spec = importlib.util.spec_from_file_location("prefix_insert_share",
+                                                      path)
+        reader = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(reader)
+        assert reader.read({"stats0": s0, "stats1": s, "window_s": 2.0}) == \
+            pytest.approx(50.0 * (s["kv_insert_wall_s"]
+                                  - s["kv_download_wall_s"]))
+        bare = {k: v for k, v in s.items() if not k.startswith("kv_")}
+        assert reader.read({"stats0": bare, "stats1": bare,
+                            "window_s": 2.0}) is None
+        tr_off = trace()
+        s_off = _engine(prefix_cache=False, batching=batching).run(tr_off)
+        assert s_off["kv_insert_wall_s"] == 0.0
+        assert [r.tokens for _, r in tr] == [r.tokens for _, r in tr_off]
+        assert all(len(r.tokens) == 3 for _, r in tr)
 
     def test_disabled_for_stateful_families(self):
         cfg = get_arch("xlstm-125m").reduced().scaled(

@@ -43,7 +43,7 @@ from repro_torch.obs import NULL, Telemetry, clock_anchor  # noqa: E402
 #: the readers of what an attached run adds to the context
 READERS = ("control_plane_share", "kv_host_roundtrip_share",
            "chunk_pad_share", "decode_occupancy", "queue_wait_ms",
-           "prefill_wait_ms")
+           "prefill_wait_ms", "prefix_insert_share")
 ANCHOR = "serving_spans.anchor"
 
 
@@ -161,7 +161,8 @@ def run(cell, seed: int, seconds: float, attach: bool, trace: bool,
         for r in records:
             q = box["reqs"][r["index"]]
             r["admit"], r["first"] = q.t_admit, q.t_first
-        ctx = {"w0": keep["w0"], "w1": keep["w1"], "records": records,
+        ctx = {"w0": keep["w0"], "w1": keep["w1"],
+               "window_s": keep["w1"] - keep["w0"], "records": records,
                "stats0": stats0, "stats1": stats1, "unit": box["unit"],
                "spans0": spans0, "spans1": spans1}
         res["readings"] = {name: bench.load_module(
